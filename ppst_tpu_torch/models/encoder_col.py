@@ -1,0 +1,134 @@
+"""E2: color/style encoder, dense path (counterpart of
+``ppst_tpu/models/encoder_col.py``; reference
+models/networks/encoder_col.py:13-251).
+
+FromRGB -> N downsampling ResBlocks; at the input scale and after each
+block, GAP+GMP pooled statistics go through a 1x1 reducer and a 3-layer MLP
+projector into an L2-normalized style vector (4 scales). With
+``corrmatrix`` the features are first warped through the correspondence,
+giving a parallel list of *warped* style vectors.
+
+Warp scale factors follow the actual correspondence grid (sqrt(L)), as in
+the JAX package. The masked projections and the blockwise ``corr_qk`` route
+(TPU kernel ``corr_pallas``) are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+import torch.nn as nn
+
+from ppst_tpu_torch.models.config import PPSTConfig
+from ppst_tpu_torch.nn.layers import ConvLayer, ResBlock, TorchConv2d, TorchLinear
+from ppst_tpu_torch.ops.corr import adaptive_avg_pool, resize_bilinear, warp, warp_resize
+
+
+class E2Output(NamedTuple):
+    vectors: Tuple  # 4 x (B, style_dim) style vectors, coarse last
+    vectors_w: Tuple  # warped variants (empty without corrmatrix)
+
+
+def l2_normalize(x, eps: float = 1e-12):
+    """torch F.normalize(dim=-1) with the norm taken in float32."""
+    x32 = x.float()
+    n = torch.linalg.vector_norm(x32, dim=-1, keepdim=True)
+    return (x32 / n.clamp_min(eps)).to(x.dtype)
+
+
+def batch_swap(x):
+    """Flip each consecutive pair in the batch (reference swap(),
+    ppst_model.py:59-66)."""
+    assert x.shape[0] % 2 == 0, "batch size must be a multiple of 2"
+    y = x.reshape((x.shape[0] // 2, 2) + tuple(x.shape[1:]))
+    return torch.flip(y, dims=(1,)).reshape(x.shape)
+
+
+def _projection_head(conv1x1, projector, feat):
+    """cat(GAP, GMP) -> 1x1 reducer -> ReLU/MLP -> L2 normalize
+    (reference encoder_col.py:47-93)."""
+    y = torch.cat([feat.mean((1, 2)), feat.amax((1, 2))], dim=-1)
+    y = conv1x1(y[:, None, None, :])[:, 0, 0, :]
+    return l2_normalize(projector(y))
+
+
+def _warp_features(x, corr, out_hw=None, fast_pool=False):
+    """Warp current-scale features through the correspondence: pool to the
+    corr source grid, warp, and resize back when above grid resolution.
+    ``fast_pool`` skips the resize-back (see PPSTConfig.e2_fast_warp_pool)."""
+    lk = corr.shape[2]
+    h, w = x.shape[1], x.shape[2]
+    if h * w < lk:
+        # a scale below the correspondence grid (geometries the reference
+        # does not support): upsample to the grid, warp, pool back
+        g = int(round(lk**0.5))
+        warped = warp(resize_bilinear(x, (g, g)), corr, out_hw=out_hw)
+        return adaptive_avg_pool(warped, (h, w)) if out_hw is None else warped
+    if h * w > lk:
+        if fast_pool:
+            s = int(round((h * w / lk) ** 0.5))
+            return warp(adaptive_avg_pool(x, (h // s, w // s)), corr, out_hw=out_hw)
+        return warp_resize(x, corr, out_hw=out_hw)
+    return warp(x, corr, out_hw=out_hw)
+
+
+class ColorEncoder(nn.Module):
+    def __init__(self, cfg: PPSTConfig):
+        super().__init__()
+        self.cfg = cfg
+        n_down = cfg.netE2_num_downsampling_gl1
+        self.FromRGB = ConvLayer(3, cfg.nc_e2(0), 1)
+        self.DownToGlobalCode1 = nn.Sequential()
+        for i in range(n_down):
+            self.DownToGlobalCode1.add_module(
+                f"ResBlockDownBy{2 ** i}",
+                ResBlock(cfg.nc_e2(i), cfg.nc_e2(i + 1), blur_kernel=cfg.e_blur_kernel),
+            )
+        # heads: "9" at the input scale, then "0".."n_down-1" after each block
+        for key, ch in [("9", cfg.nc_e2(0))] + [
+            (str(i), cfg.nc_e2(i + 1)) for i in range(n_down)
+        ]:
+            sd = cfg.style_dim
+            self.add_module(f"conv1x1_{key}", TorchConv2d(2 * ch, ch, 1))
+            self.add_module(f"projector{key}", nn.Sequential(
+                nn.ReLU(), TorchLinear(ch, max(sd // 2, 1), std=0.02),
+                nn.ReLU(), TorchLinear(max(sd // 2, 1), sd, std=0.02),
+                nn.ReLU(), TorchLinear(sd, sd, std=0.02),
+            ))
+
+    def _head(self, key, feat):
+        return _projection_head(getattr(self, f"conv1x1_{key}"),
+                                getattr(self, f"projector{key}"), feat)
+
+    def forward(self, x, corrmatrix=None, corr_out_hw=None, trunk=None,
+                return_trunk=False, warped_only=False, corr_qk=None):
+        """``corrmatrix``: dense (B, Lq, Lk) correspondence; ``corr_out_hw``
+        the target (content) grid when it differs from the source grid.
+
+        ``trunk``/``return_trunk``: the per-scale conv trunk features
+        (FromRGB + the downsampling blocks). A staged pipeline that already
+        ran E2 on the style image passes them back instead of recomputing
+        them. ``warped_only`` skips the unwarped heads."""
+        if corr_qk is not None:
+            raise NotImplementedError(
+                "E2's corr_qk route needs the blockwise correspondence kernel, "
+                "which is not ported yet; pass a dense corrmatrix")
+        fast_pool = self.cfg.e2_fast_warp_pool
+        blocks = list(self.DownToGlobalCode1)
+        keys = ["9"] + [str(i) for i in range(len(blocks))]
+        vectors, vectors_w, trunk_out = [], [], []
+        y = None
+        for s, key in enumerate(keys):
+            if trunk is not None:
+                y = trunk[s]
+            else:
+                y = self.FromRGB(x) if s == 0 else blocks[s - 1](y)
+            trunk_out.append(y)
+            if not warped_only:
+                vectors.append(self._head(key, y))
+            if corrmatrix is not None:
+                yw = _warp_features(y, corrmatrix, corr_out_hw, fast_pool)
+                vectors_w.append(self._head(key, yw))
+        out = E2Output(tuple(vectors), tuple(vectors_w))
+        return (out, tuple(trunk_out)) if return_trunk else out

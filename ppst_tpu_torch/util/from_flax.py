@@ -1,0 +1,142 @@
+"""Weight bridge: ``ppst_tpu`` parameter trees -> this package's state_dict.
+
+Takes the JAX package's ``{"E1", "E2", "G"}`` param trees as nested dicts of
+numpy arrays and returns the ``state_dict`` of ``PPSTModel`` (the reference
+PyTorch key names). It is the inverse of ``ppst_tpu/util/convert_torch.py``:
+conv kernels (kh, kw, I, O) -> (O, I, kh, kw), linears (I, O) -> (O, I).
+The discriminator waits for the training slice.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+
+def _cw(w):  # conv kernel
+    return np.transpose(np.asarray(w), (3, 2, 0, 1))
+
+
+def _lw(w):  # linear weight
+    return np.transpose(np.asarray(w), (1, 0))
+
+
+class _Out:
+    """Prefix-scoped writer into a flat state dict."""
+
+    def __init__(self, sd: Dict, prefix: str = ""):
+        self.sd, self.prefix = sd, prefix
+
+    def __setitem__(self, key, value):
+        self.sd[self.prefix + key] = torch.from_numpy(np.array(value, np.float32))
+
+    def sub(self, prefix: str) -> "_Out":
+        return _Out(self.sd, self.prefix + prefix)
+
+
+def _conv_layer(out: _Out, p):
+    out["Conv.weight"] = _cw(p["conv"]["weight"])
+    if "bias" in p["conv"]:
+        out["Conv.bias"] = p["conv"]["bias"]
+    if "act_bias" in p:
+        out["Act.bias"] = p["act_bias"]
+
+
+def _res_block(out: _Out, p):
+    for name in ("conv1", "conv2", "skip"):
+        _conv_layer(out.sub(f"{name}."), p[name])
+
+
+def _linear(out: _Out, p, transpose=_lw):
+    out["weight"] = transpose(p["weight"])
+    out["bias"] = p["bias"]
+
+
+def _epilogue(out: _Out, p):
+    _linear(out.sub("epi1.style_mod.lin."), p["epi1"]["style_mod"]["lin"])
+
+
+def _styled_conv(out: _Out, p):
+    out["conv.weight"] = _cw(p["conv"]["weight"])
+    out["conv.bias"] = p["conv"]["bias"]
+    if "noise" in p:
+        out["noise.weight"] = p["noise"]["weight"]
+    out["bias"] = np.asarray(p["bias"]).reshape(1, -1, 1, 1)
+    out["activate.bias"] = p["act_bias"]
+    _epilogue(out, p)
+
+
+def _torch_conv(out: _Out, p):
+    _linear(out, p, transpose=_cw)
+
+
+def _residual_block(out: _Out, p):
+    _torch_conv(out.sub("conv1."), p["conv1"])
+    _torch_conv(out.sub("conv2."), p["conv2"])
+    out["prelu.weight"] = p["prelu"]["alpha"]
+
+
+def from_e1(out: _Out, p):
+    _conv_layer(out.sub("FromRGB."), p["from_rgb"])
+    i = 0
+    while f"down{2 ** i}" in p:
+        _res_block(out.sub(f"DownToSpatialCode.ResBlockDownBy{2 ** i}."), p[f"down{2 ** i}"])
+        i += 1
+    _conv_layer(out.sub("ToSpatialCode.0."), p["to_sp0"])
+    _conv_layer(out.sub("ToSpatialCode.1."), p["to_sp1"])
+
+
+def _projection_head(out: _Out, p, key: str):
+    out[f"conv1x1_{key}.weight"] = _lw(p["reduce"]["weight"])[:, :, None, None]
+    out[f"conv1x1_{key}.bias"] = p["reduce"]["bias"]
+    for idx, name in (("1", "fc0"), ("3", "fc1"), ("5", "fc2")):
+        _linear(out.sub(f"projector{key}.{idx}."), p[name])
+
+
+def from_e2(out: _Out, p):
+    _conv_layer(out.sub("FromRGB."), p["from_rgb"])
+    _projection_head(out, p["head_in"], "9")
+    i = 0
+    while f"down{2 ** i}" in p:
+        _res_block(out.sub(f"DownToGlobalCode1.ResBlockDownBy{2 ** i}."), p[f"down{2 ** i}"])
+        _projection_head(out, p[f"head{i}"], str(i))
+        i += 1
+
+
+def from_g(out: _Out, p):
+    for name in ("scale", "bias"):
+        _linear(out.sub(f"SpatialCodeModulation.{name}."), p["sp_mod"][name])
+    for flax_name, ref_name in [(k, f"HeadResnetBlock{k[4:]}") for k in p
+                                if k.startswith("head")] + [
+            (k, f"UpsamplingResBlock{k[2:]}") for k in p if k.startswith("up")]:
+        blk, o = p[flax_name], out.sub(f"{ref_name}.")
+        _styled_conv(o.sub("conv1."), blk["conv1"])
+        _styled_conv(o.sub("conv2."), blk["conv2"])
+        if "skip" in blk:
+            _conv_layer(o.sub("skip."), blk["skip"])
+    rgb = p["to_rgb"]
+    out["ToRGB.conv.weight"] = _cw(rgb["conv"]["weight"])
+    out["ToRGB.conv.bias"] = rgb["conv"]["bias"]
+    out["ToRGB.bias"] = np.asarray(rgb["bias"]).reshape(1, -1, 1, 1)
+    _epilogue(out.sub("ToRGB."), rgb)
+    for key in (k[3:] for k in p if k.startswith("tap")):
+        tap, o = p[f"tap{key}"], out.sub(f"layer{key}.")
+        _torch_conv(o.sub("2."), tap["conv1"])
+        o["4.weight"] = tap["prelu1"]["alpha"]
+        _torch_conv(o.sub("6."), tap["conv2"])
+        o["8.weight"] = tap["prelu2"]["alpha"]
+    for i in range(3):
+        _residual_block(out.sub(f"layert.{i}."), p[f"fuse{i}"])
+    _residual_block(out.sub("layert1.0."), p["fuse1_res"])
+    _torch_conv(out.sub("layert1.1."), p["fuse1_conv"])
+
+
+def from_flax(params: Dict) -> Dict[str, torch.Tensor]:
+    """``{"E1", "E2", "G"}`` flax param trees -> ``PPSTModel`` state_dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    from_e1(_Out(sd, "E1."), params["E1"])
+    from_e2(_Out(sd, "E2."), params["E2"])
+    from_g(_Out(sd, "G."), params["G"])
+    return sd

@@ -1,0 +1,98 @@
+"""The weight bridge between the two packages, the reference-checkpoint
+loader, and the rule that the port imports nothing of JAX."""
+
+import ast
+import pathlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from ppst_tpu.models.config import PPSTConfig as JaxConfig
+from ppst_tpu.models.encoder_col import ColorEncoder as JaxE2
+from ppst_tpu.models.encoder_con import ContentEncoder as JaxE1
+from ppst_tpu.models.generator import Generator as JaxG
+from ppst_tpu.util.convert_torch import convert_reference_state_dict
+from ppst_tpu.util.fast_init import random_params_like
+from ppst_tpu_torch.models.config import PPSTConfig
+from ppst_tpu_torch.models.ppst import PPSTModel
+from ppst_tpu_torch.util.from_flax import from_flax
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+NARROW = dict(crop_size=64, netE_scale_capacity=0.25, netE2_scale_capacity=0.25,
+              global_code_ch=64, spatial_code_ch=16, netG_resnet_ch=32,
+              netG_scale_capacity=0.125)
+
+
+def _flax_tree():
+    """E1/E2/G param trees of the structure ``PPSTModel.init`` builds (the
+    same module inits with the same arguments), filled with seeded values
+    without compiling the init graphs."""
+    cfg = JaxConfig(**NARROW)
+    k = jax.random.PRNGKey(0)
+    x = jnp.zeros((2, 64, 64, 3))
+    sp = jnp.zeros((2, 8, 8, cfg.spatial_code_ch))
+    gl = [jnp.zeros((2, cfg.style_dim))] * 4
+
+    def init():
+        return {
+            "E1": JaxE1(cfg).init(k, x)["params"],
+            "E2": JaxE2(cfg).init(k, x)["params"],
+            "G": JaxG(cfg).init({"params": k, "noise": k}, sp, gl,
+                                extract_features=True)["params"],
+        }
+
+    return random_params_like(init, scale=1.0, seed=0)
+
+
+def test_from_flax_round_trip():
+    """flax tree -> from_flax -> the port's state_dict -> convert_torch gives
+    back every leaf of E1, E2 and G unchanged."""
+    tree = _flax_tree()
+    model = PPSTModel(PPSTConfig(**NARROW), device="cpu")
+    model.load_state_dict(from_flax(tree))  # strict: same keys, same shapes
+    back = convert_reference_state_dict(
+        {k: v.numpy() for k, v in model.state_dict().items()})
+    for net in ("E1", "E2", "G"):
+        want = jax.tree_util.tree_flatten_with_path(tree[net])[0]
+        got = dict(jax.tree_util.tree_flatten_with_path(back[net])[0])
+        assert set(got) == {p for p, _ in want}, net
+        for path, leaf in want:
+            np.testing.assert_array_equal(np.asarray(got[path]), np.asarray(leaf),
+                                          err_msg=f"{net} {path}")
+
+
+def test_load_reference_checkpoint(tmp_path):
+    """A reference .pth with extra members (D, dead modules) and biases
+    stored flat loads into the port."""
+    src = PPSTModel(PPSTConfig(**NARROW), device="cpu", seed=1)
+    sd = {k: (v.reshape(-1) if v.dim() == 4 and v.shape[0] == 1 else v)
+          for k, v in src.state_dict().items()}
+    sd["D.stylegan2_D.final_conv.Conv.weight"] = torch.zeros(1)
+    sd["E1.mlp_01.weight"] = torch.zeros(1)
+    path = tmp_path / "ref.pth"
+    torch.save({"state_dict": sd}, path)
+
+    dst = PPSTModel(PPSTConfig(**NARROW), device="cpu", seed=2)
+    dst.load_reference_checkpoint(str(path))
+    for k, v in src.state_dict().items():
+        assert torch.equal(dst.state_dict()[k], v), k
+
+
+def _imported_roots(path):
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_port_imports_no_jax():
+    files = sorted((ROOT / "ppst_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for f in files:
+        bad = _imported_roots(f) & {"jax", "jaxlib", "flax", "optax", "ppst_tpu"}
+        assert not bad, f"{f.relative_to(ROOT)} imports {sorted(bad)}"
