@@ -9,8 +9,10 @@ projector into an L2-normalized style vector (4 scales). With
 giving a parallel list of *warped* style vectors.
 
 Warp scale factors follow the actual correspondence grid (sqrt(L)), as in
-the JAX package. The masked projections and the blockwise ``corr_qk`` route
-(TPU kernel ``corr_pallas``) are not ported yet.
+the JAX package. ``corr_qk`` warps from normalized descriptors through the
+blockwise kernel (``ops.corr_warp_cuda``) instead of a dense matrix. The
+masked projections and the training route of ``corr_qk``
+(``cfg.corr_blockwise``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch.nn as nn
 from ppst_tpu_torch.models.config import PPSTConfig
 from ppst_tpu_torch.nn.layers import ConvLayer, ResBlock, TorchConv2d, TorchLinear
 from ppst_tpu_torch.ops.corr import adaptive_avg_pool, resize_bilinear, warp, warp_resize
+from ppst_tpu_torch.ops.corr_warp_cuda import corr_warp_blockwise
 
 
 class E2Output(NamedTuple):
@@ -73,6 +76,25 @@ def _warp_features(x, corr, out_hw=None, fast_pool=False):
     return warp(x, corr, out_hw=out_hw)
 
 
+def _warp_features_qk(x, q_desc, k_desc, out_hw=None, fast_pool=False):
+    """Like ``_warp_features``, from normalized descriptors q (B, Lq, C) and
+    k (B, Lk, C) through the blockwise kernel, never holding the Lq x Lk
+    matrix: pool by s = sqrt(h*w/Lk), warp, and resize back unless
+    ``fast_pool``."""
+    b, h, w, c = x.shape
+    lk, lq = k_desc.shape[1], q_desc.shape[1]
+    if out_hw is None:
+        g = int(round(lq**0.5))
+        out_hw = (g, g)
+    s = int(round((h * w / lk) ** 0.5))
+    pooled = adaptive_avg_pool(x, (h // s, w // s)) if s > 1 else x
+    warped = corr_warp_blockwise(q_desc, k_desc, pooled.reshape(b, lk, c))
+    warped = warped.reshape(b, out_hw[0], out_hw[1], c)
+    if s > 1 and not fast_pool:
+        warped = resize_bilinear(warped, (out_hw[0] * s, out_hw[1] * s))
+    return warped
+
+
 class ColorEncoder(nn.Module):
     def __init__(self, cfg: PPSTConfig):
         super().__init__()
@@ -109,11 +131,16 @@ class ColorEncoder(nn.Module):
         ``trunk``/``return_trunk``: the per-scale conv trunk features
         (FromRGB + the downsampling blocks). A staged pipeline that already
         ran E2 on the style image passes them back instead of recomputing
-        them. ``warped_only`` skips the unwarped heads."""
-        if corr_qk is not None:
+        them. ``warped_only`` skips the unwarped heads.
+
+        ``corr_qk``: instead of ``corrmatrix``, a pair of normalized
+        descriptors ((B, Lq, C), (B, Lk, C)) (``ops.corr_warp_cuda.
+        normalize_desc``) warped through the blockwise kernel."""
+        assert corrmatrix is None or corr_qk is None
+        if corr_qk is not None and self.cfg.corr_blockwise:
             raise NotImplementedError(
-                "E2's corr_qk route needs the blockwise correspondence kernel, "
-                "which is not ported yet; pass a dense corrmatrix")
+                "cfg.corr_blockwise (the differentiable blockwise scan of training) "
+                "is not ported yet")
         fast_pool = self.cfg.e2_fast_warp_pool
         blocks = list(self.DownToGlobalCode1)
         keys = ["9"] + [str(i) for i in range(len(blocks))]
@@ -129,6 +156,9 @@ class ColorEncoder(nn.Module):
                 vectors.append(self._head(key, y))
             if corrmatrix is not None:
                 yw = _warp_features(y, corrmatrix, corr_out_hw, fast_pool)
+                vectors_w.append(self._head(key, yw))
+            elif corr_qk is not None:
+                yw = _warp_features_qk(y, corr_qk[0], corr_qk[1], corr_out_hw, fast_pool)
                 vectors_w.append(self._head(key, yw))
         out = E2Output(tuple(vectors), tuple(vectors_w))
         return (out, tuple(trunk_out)) if return_trunk else out

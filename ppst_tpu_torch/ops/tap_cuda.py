@@ -8,59 +8,29 @@ tensor it runs ``fused_tap_1x1_reference``, the plain PyTorch version of the
 same arithmetic. There is no other path.
 
 The kernel is compiled with ``nvcc`` for sm_90a at first use into
-``ppst_tpu_torch/_build/`` and bound through ``ctypes``.
+``ppst_tpu_torch/_build/`` and bound through ``ctypes`` (``ops._nvcc``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
+from ppst_tpu_torch.ops import _nvcc
+
 _EPS = 1e-5
-_PKG = Path(__file__).resolve().parent.parent
-_SRC = _PKG / "csrc" / "tap.cu"
-_BUILD = _PKG / "_build"
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC"]
 _CHUNK = 256  # pixels per block of the kernel (kChunk in tap.cu)
 _CIN, _COUT = 128, 64
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the fused tap kernel cannot be built")
-
-
-def build() -> Path:
-    """Compile ``csrc/tap.cu`` into a shared library, once per source
-    version, and return its path."""
-    digest = hashlib.sha1(_SRC.read_bytes() + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    lib = _BUILD / f"tap_{digest[:16]}.so"
-    if not lib.exists():
-        _BUILD.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)], check=True)
-        os.replace(tmp, lib)
-    return lib
-
-
 @functools.lru_cache(maxsize=None)
 def _lib():
-    lib = ctypes.CDLL(str(build()))
+    lib = _nvcc.load("tap")
     fn = lib.ppst_fused_tap_fwd
     fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.ppst_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.ppst_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -145,9 +115,7 @@ def fused_tap_1x1(x, w1, b1, a1, w2, b2, a2):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ppst_fused_tap_fwd(*[a.data_ptr() for a in args], bsz, n, cin,
                                      _COUT, _COUT, stream)
-    if err != 0:
-        msg = lib.ppst_cuda_error_string(err).decode()
-        raise RuntimeError(f"fused_tap_1x1: kernel launch failed: {msg} ({err})")
+    _nvcc.check(lib, err, "fused_tap_1x1")
     fused_tap_1x1.launches += 1
     return args[9]
 

@@ -17,9 +17,10 @@ def lerp(a, b, r):
     return a * (1 - r) + b * r
 
 
-def tensor2im(x: torch.Tensor) -> np.ndarray:
-    """NHWC float [-1, 1] -> uint8 NHWC numpy (batch preserved)."""
-    x = x.detach().float().cpu().numpy()
+def tensor2im(x) -> np.ndarray:
+    """NHWC float [-1, 1] tensor or numpy array -> uint8 NHWC numpy (batch
+    preserved)."""
+    x = x.detach().float().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
     return np.clip((x + 1.0) * 127.5, 0, 255).astype(np.uint8)
 
 
