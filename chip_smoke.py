@@ -12,20 +12,27 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    off) at the main paths' shapes and an odd shape, with its determinism, its
    time, the plain version's time, the time of the one PyTorch call that
    computes the same function where there is one, and the least time the
-   card could take;
+   card could take; the fused tap's backward (K2) with and without dx;
 3. path: 512px ``stylize`` at full width in bf16 with the fused tap and the
    guided filter, batch 1 then batch 8 pairs; then 1024px ``stylize_fused``
    (the blockwise correspondence) at batch 1; each checks its output and the
    kernels it launched;
 4. grid: a 512px 4x8 grid, dense and blockwise on the same banks, and a
    1024px 2x4 blockwise grid, with pairs/s amortized over extraction;
-5. reference: a narrow float32 model at crop 64 on the card against the CPU
+5. train: 512px full-width training in bf16 with the fused tap at batch 4
+   (D, G and D+R1 steps through ``train.steps``): step times, training
+   images/s, peak memory, every loss, every network moving, and the launches
+   of K1 and K2 (K2 once per G step) and K3 (none);
+6. reference: a narrow float32 model at crop 64 on the card against the CPU
    run of the same code (``stylize``, ``stylize_fused``, blockwise
-   ``grid_pairs``), and the narrow generator's bf16-vs-float32 distance on
+   ``grid_pairs``; the D step's, the R1 penalty's and the G step's losses
+   and gradients), and the narrow generator's bf16-vs-float32 distance on
    the card and on the CPU;
-6. cli: ``python -m ppst_tpu_torch.test --device cuda`` on two generated
+7. cli: ``python -m ppst_tpu_torch.test --device cuda`` on two generated
    512px PNGs (simple_swapping), then the grid evaluator on a generated
-   folder of 2 + 2 512px PNGs.
+   folder of 2 + 2 512px PNGs; ``python -m ppst_tpu_torch.train --device
+   cuda`` at 512px, batch 2, then ``--continue_train``, then its checkpoint
+   served by ``python -m ppst_tpu_torch.test --checkpoint``.
 
 Each phase prints its seconds. Then the script prints the ``kernels`` line
 and, last, the ``ok`` line. Without a CUDA device it exits non-zero before
@@ -74,6 +81,17 @@ GRID_MAX_ABS, GRID_MEAN_ABS = 0.05, 0.005
 NARROW = dict(crop_size=64, netE_scale_capacity=0.25, netE2_scale_capacity=0.25,
               global_code_ch=64, spatial_code_ch=16, netG_resnet_ch=32,
               netG_scale_capacity=0.125)
+# K2's tolerance, as in tests/test_pallas_kernels.py::test_tap_pallas_grad: 2%
+# of each gradient's max; the bias gradients (a mathematical zero: a
+# per-channel shift cancels in the next instance norm) at noise level, below
+# 1% of the largest gradient. Its max_abs_err is the largest |kernel - plain|
+# over every gradient, shape and dx setting.
+TAP_BWD_REL = 0.02
+TAP_BWD_NAMES = ("dx", "dw1", "db1", "da1", "dw2", "db2", "da2")
+# card against CPU, narrow float32 training losses and gradients: the bounds of
+# tests/test_torch_train.py (port against JAX on the CPU), whose max-pools
+# and kinks flip where two values nearly tie
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL, TRAIN_GRAD_COS = 1e-4, 5e-2, 5e-3, 0.995
 
 
 def card_peaks(name):
@@ -156,6 +174,75 @@ def kernel_phase(tap_cuda, bw, flops, card):
     return record
 
 
+def tap_bwd_phase(tap_cuda, bw, flops, card):
+    """K2 against its plain version on the residuals K1 gives; returns its
+    record at the training path's shape, (4, 512, 512, 128) without dx."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    max_err, record = 0.0, None
+    for shape in [(2, 512, 512, 128), (4, 512, 512, 128), (3, 40, 24, 128)]:
+        x = torch.randn(shape, generator=g, device="cuda").bfloat16()
+        w1 = torch.randn((64, 128), generator=g, device="cuda") * 0.1
+        b1 = torch.randn((64,), generator=g, device="cuda") * 0.1
+        w2 = torch.randn((64, 64), generator=g, device="cuda") * 0.1
+        b2 = torch.randn((64,), generator=g, device="cuda") * 0.1
+        a1 = torch.full((1,), 0.25, device="cuda")
+        a2 = torch.full((1,), -0.1, device="cuda")
+        _, (t, u, mr) = tap_cuda._forward(x, w1, b1, a1, w2, b2, a2)
+        cot = torch.randn(shape[:3] + (64,), generator=g, device="cuda").bfloat16()
+        for need_dx in (False, True):
+            args = (x, t, u, mr, w1, w2, a1, a2, cot, need_dx)
+            got = tap_cuda.fused_tap_1x1_bwd(*args)
+            torch.cuda.synchronize()
+            want = tap_cuda.fused_tap_1x1_bwd_reference(*args)
+            overall = max(w.abs().max().item() for w in want if w is not None)
+            rel = {}
+            for name, a, b in zip(TAP_BWD_NAMES, got, want):
+                if b is None:
+                    if a is not None:
+                        raise AssertionError("fused_tap_1x1_bwd returned dx unasked")
+                    continue
+                a, b = a.float(), b.float()
+                if not torch.isfinite(a).all().item() or a.shape != b.shape:
+                    raise AssertionError(f"fused_tap_1x1_bwd {name}: bad output at {shape}")
+                bmax = b.abs().max().item()
+                max_err = max(max_err, (a - b).abs().max().item())
+                if name.startswith("db"):
+                    rel[name] = a.abs().max().item() / overall
+                    ok = bmax < 0.02 * overall and rel[name] <= max(bmax / overall, 0.01)
+                else:
+                    rel[name] = (a - b).abs().max().item() / bmax
+                    ok = rel[name] <= TAP_BWD_REL
+                if not ok:
+                    raise AssertionError(f"fused_tap_1x1_bwd {name} disagrees with its plain "
+                                         f"version at {shape}, dx={need_dx}: {rel[name]}")
+            print(f"[kernel] fused_tap_1x1_bwd {shape} dx={need_dx}: max |error| / max |grad| "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+                  + f" (tolerance {TAP_BWD_REL}; db* as |grad| / largest, noise level)", flush=True)
+            again = tap_cuda.fused_tap_1x1_bwd(*args)
+            if not all((a is None and b is None) or torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError("fused_tap_1x1_bwd is not deterministic")
+            if shape[1] < 512:
+                continue
+            b, h, w, cin = shape
+            pixels = b * h * w
+            # least traffic: x, t, u and g read once (640 B a pixel), dx written
+            min_bytes = pixels * (cin + 3 * 64) * 2 + (pixels * cin * 2 if need_dx else 0)
+            # the products this call needs: dW2, dp2 and dW1 (and dn1 for dx)
+            ops = 2 * pixels * (2 * 64 * 64 + 64 * 128 * (2 if need_dx else 1))
+            bound_ms = max(min_bytes / bw, ops / flops) * 1e3
+            bound_by = "bytes" if min_bytes / bw >= ops / flops else "operations"
+            ms, plain_ms = cuda_ms(lambda: tap_cuda.fused_tap_1x1_bwd(*args),
+                                   other=lambda: tap_cuda.fused_tap_1x1_bwd_reference(*args))
+            print(f"[kernel] fused_tap_1x1_bwd {shape} dx={need_dx}: {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {min_bytes / 1e6:.1f} "
+                  f"MB at {bw / 1e12} TB/s, {ops / 1e9:.2f} GFLOP at {flops / 1e12} TFLOP/s); "
+                  f"{card}", flush=True)
+            if b == 4 and not need_dx:
+                record = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    record["max_abs_err"] = max_err
+    return record
+
+
 def sdpa_backend(q, k, v, scale):
     """The backend PyTorch's scaled_dot_product_attention picks for these
     inputs."""
@@ -219,6 +306,13 @@ def corr_warp_phase(cw, bw, flops, card):
 def reset_launches(*kernels):
     for k in kernels:
         k.launches = 0
+
+
+def check_no_backward(tap_cuda, path):
+    """A serving path launches no backward kernel."""
+    if tap_cuda.fused_tap_1x1_bwd.launches:
+        raise AssertionError(f"{path} launched fused_tap_1x1_bwd "
+                             f"{tap_cuda.fused_tap_1x1_bwd.launches} times")
 
 
 def small_reference_check(PPSTConfig, PPSTModel):
@@ -290,7 +384,7 @@ def path_phase(tap_cuda, cw, PPSTConfig, PPSTModel, card):
         torch.cuda.synchronize()
         return out
 
-    reset_launches(tap_cuda.fused_tap_1x1, cw.corr_warp_blockwise)
+    reset_launches(tap_cuda.fused_tap_1x1, cw.corr_warp_blockwise, tap_cuda.fused_tap_1x1_bwd)
     out1 = run(content8[:1], style8[:1])  # warm-up
     lat = []
     for _ in range(10):
@@ -307,6 +401,7 @@ def path_phase(tap_cuda, cw, PPSTConfig, PPSTModel, card):
     launches = tap_cuda.fused_tap_1x1.launches
     if cw.corr_warp_blockwise.launches:
         raise AssertionError("the dense stylize path launched the blockwise kernel")
+    check_no_backward(tap_cuda, "stylize")
 
     for out, b in ((out1, 1), (out8, 8)):
         if out.shape != (b, 512, 512, 3) or not torch.isfinite(out).all().item():
@@ -334,7 +429,7 @@ def fused_path_phase(tap_cuda, cw, PPSTConfig, PPSTModel, card):
     gen = torch.Generator(device="cuda").manual_seed(0)
     content, style = (torch.rand((2, 1024, 1024, 3), generator=gen, device="cuda") * 2 - 1
                       ).bfloat16().chunk(2)
-    reset_launches(tap_cuda.fused_tap_1x1, cw.corr_warp_blockwise)
+    reset_launches(tap_cuda.fused_tap_1x1, cw.corr_warp_blockwise, tap_cuda.fused_tap_1x1_bwd)
     out = model.stylize_fused(content, style, gen, smooth_target=True)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -347,6 +442,7 @@ def fused_path_phase(tap_cuda, cw, PPSTConfig, PPSTModel, card):
     calls = 11
     k1, k3 = tap_cuda.fused_tap_1x1.launches, cw.corr_warp_blockwise.launches
     peak = torch.cuda.max_memory_allocated() / 2**30
+    check_no_backward(tap_cuda, "stylize_fused")
 
     if out.shape != (1, 1024, 1024, 3) or not torch.isfinite(out).all().item():
         raise AssertionError(f"stylize_fused: bad output {tuple(out.shape)}")
@@ -411,11 +507,12 @@ def grid_phase(tap_cuda, cw, PPSTConfig, PPSTModel, card):
         out = pairs(extract(), blockwise)  # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        reset_launches(tap_cuda.fused_tap_1x1, cw.corr_warp_blockwise)
+        reset_launches(tap_cuda.fused_tap_1x1, cw.corr_warp_blockwise, tap_cuda.fused_tap_1x1_bwd)
         t0 = time.perf_counter()
         for _ in range(iters):
             out = pairs(extract(), blockwise)
         torch.cuda.synchronize()
+        check_no_backward(tap_cuda, "grid serving")
         pairs_s = n_pairs * iters / (time.perf_counter() - t0)
         if not torch.isfinite(out.float()).all().item() or out.float().std().item() < 1e-3:
             raise AssertionError("grid output is not finite or constant")
@@ -453,6 +550,197 @@ def grid_phase(tap_cuda, cw, PPSTConfig, PPSTModel, card):
     report["grid1024_2x4_blockwise_pairs_per_s"] = pairs_s
     report["grid1024_2x4_blockwise_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
     print(json.dumps(report), flush=True)
+
+
+def synthetic_batch(gen, b, crop):
+    """Images and masks as ppst_tpu_torch.data.synthetic_dataset makes them
+    (smooth random images, blocky one-hot 3-region masks), on the card."""
+    low = torch.randn((b, crop // 8, crop // 8, 3), generator=gen, device="cuda")
+    img = (low.repeat_interleave(8, 1).repeat_interleave(8, 2) * 0.5).clamp(-1, 1)
+    region = torch.randint(0, 3, (b, crop // 16, crop // 16), generator=gen, device="cuda")
+    region = region.repeat_interleave(16, 1).repeat_interleave(16, 2)
+    return img, F.one_hot(region, 3).float()
+
+
+def train_phase(tap_cuda, cw, PPSTConfig, PPSTModel, card):
+    """512px full-width bf16 training with the fused tap and the default
+    remat (every G pass recomputed in the backward), batch 4: one warm-up
+    round of D, G and D+R1 steps, then three timed rounds. Returns K2's
+    launches."""
+    from ppst_tpu_torch.train.steps import TrainSteps
+
+    batch = 4
+    model = PPSTModel(PPSTConfig(crop_size=512, dtype="bfloat16", fused_tap=True),
+                      device="cuda", seed=0)
+    steps = TrainSteps(model)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    real, mask = synthetic_batch(gen, batch, 512)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    kinds = {"d": steps.d_step, "g": steps.g_step, "r1": steps.d_step_r1}
+    times, counts, losses = {k: [] for k in kinds}, dict.fromkeys(kinds, 0), {}
+    reset_launches(tap_cuda.fused_tap_1x1, cw.corr_warp_blockwise, tap_cuda.fused_tap_1x1_bwd)
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(4):
+        for kind, step in kinds.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(real, mask, gen)
+            torch.cuda.synchronize()
+            times[kind].append((time.perf_counter() - t0) * 1e3)
+            counts[kind] += 1
+            losses.update({k: v.item() for k, v in out.items()})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    k1, k2, k3 = (tap_cuda.fused_tap_1x1.launches, tap_cuda.fused_tap_1x1_bwd.launches,
+                  cw.corr_warp_blockwise.launches)
+    t = {k: statistics.median(v[1:]) for k, v in times.items()}
+    img_s = 2 * batch / (t["d"] + t["g"] + (t["r1"] - t["d"]) / 16) * 1e3
+
+    bad = [k for k, v in losses.items() if not np.isfinite(v)]
+    if bad:
+        raise AssertionError(f"non-finite training losses: {bad}")
+    still = [net for net in ("E1", "E2", "G", "D")
+             if all(torch.equal(v, before[k]) for k, v in model.state_dict().items()
+                    if k.startswith(net + "."))]
+    if still:
+        raise AssertionError(f"training did not move {still}")
+    # feature passes: one in each D step, two in each G step (its forward and
+    # the remat recompute of the g_ext pass)
+    want_k1 = counts["d"] + counts["r1"] + 2 * counts["g"]
+    if k2 != counts["g"] or k1 != want_k1 or k3:
+        raise AssertionError(f"training launched K1 {k1}, K2 {k2}, K3 {k3} times in "
+                             f"{counts} steps ({want_k1}, {counts['g']} and 0 expected)")
+    # where a G step's time goes: one more step under torch.profiler
+    prof_acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=prof_acts) as prof:
+        t0 = time.perf_counter()
+        steps.g_step(real, mask, gen)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+
+    # the kernels themselves: the operators' events carry their kernels' time too
+    events = sorted((e for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=device_us, reverse=True)
+    busy = sum(device_us(e) for e in events) / 1e3
+    profile = {"wall_ms": prof_wall, "device_busy_ms": busy, "busy_share": busy / prof_wall,
+               "top_kernels_ms": [[e.key[:80], device_us(e) / 1e3, e.count] for e in events[:12]]}
+    print(json.dumps({"g_step_profile": profile, "card": card}), flush=True)
+    print(json.dumps({
+        "path": "train", "crop": 512, "batch": batch, "dtype": "bfloat16", "fused_tap": True,
+        "remat_nets": model.cfg.remat_nets, "d_step_ms": t["d"], "g_step_ms": t["g"],
+        "d_r1_step_ms": t["r1"], "step_ms": times, "train_img_per_s": img_s,
+        "peak_mem_gib": peak, "losses": losses, "steps": counts, "fused_tap_launches": k1,
+        "fused_tap_bwd_launches": k2, "corr_warp_launches": k3, "card": card}), flush=True)
+    return k2
+
+
+def train_reference_check(PPSTConfig, PPSTModel):
+    """The narrow float32 model's D-step, R1 and G-step losses and gradients
+    on the card against the CPU run of the same code (which the tests hold
+    against ppst_tpu), from the same weights and batch."""
+    kw = dict(NARROW, netD_scale_capacity=0.125)
+    rng = np.random.default_rng(0)
+    real = torch.from_numpy(rng.uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32))
+    region = np.kron(rng.integers(0, 3, (2, 4, 4)), np.ones((1, 16, 16), np.int64))
+    mask = torch.from_numpy(np.stack([region == i for i in range(3)], -1).astype(np.float32))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        model = PPSTModel(PPSTConfig(**kw), device=dev, seed=0)
+        r, m = real.to(dev), mask.to(dev)
+        for kind in ("d", "r1", "g"):
+            model.zero_grad(set_to_none=True)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            metrics, nets = {}, ("D",)
+            if kind == "d":
+                losses = model.discriminator_losses(r, m, gen)
+            elif kind == "r1":
+                losses = model.r1_loss(r)
+            else:
+                losses, metrics, _ = model.generator_losses(r, m, gen)
+                nets = ("G", "E1", "E2")
+            sum(losses.values()).backward(
+                inputs=[p for n in nets for p in getattr(model, n).parameters()])
+            grads = {k: p.grad.double().cpu() for k, p in model.named_parameters()
+                     if p.grad is not None and k.split(".")[0] in nets}
+            runs[(dev, kind)] = ({k: v.item() for k, v in dict(losses, **metrics).items()}, grads)
+    report = {}
+    for kind in ("d", "r1", "g"):
+        (lc, gc), (lg, gg) = runs[("cpu", kind)], runs[("cuda", kind)]
+        loss_err = max(abs(lg[k] - v) / max(abs(v), 1e-3) for k, v in lc.items())
+        scale = max(v.abs().max().item() for v in gc.values())
+        worst_rel, worst_cos = 0.0, 1.0
+        for k, w in gc.items():
+            if "noise" in k:  # noise gains: their gradient is the (device-drawn) noise's
+                continue
+            err = (gg[k] - w).abs().max().item()
+            wmax = w.abs().max().item()
+            if err > TRAIN_GRAD_RTOL * wmax + TRAIN_GRAD_ATOL * scale:
+                raise AssertionError(f"{kind} gradient of {k} on the card: {err} (max {wmax})")
+            worst_rel = max(worst_rel, err / max(wmax, 1e-30) if wmax > 1e-3 * scale else 0.0)
+            if wmax > 1e-3 * scale:
+                cos = (gg[k].flatten() @ w.flatten()).item() / (gg[k].norm() * w.norm()).item()
+                worst_cos = min(worst_cos, cos)
+        if set(lg) != set(lc) or loss_err > TRAIN_LOSS_RTOL or worst_cos < TRAIN_GRAD_COS:
+            raise AssertionError(f"{kind} step on the card disagrees with the CPU run: losses "
+                                 f"{loss_err}, gradient cosine {worst_cos}")
+        report[kind] = {"loss_max_rel_err": loss_err, "grad_max_rel_err": worst_rel,
+                        "grad_min_cosine": worst_cos, "losses": sorted(lc)}
+    print(json.dumps({"train_reference_crop64_f32_card_vs_cpu": report}), flush=True)
+
+
+def train_cli_phase():
+    """The training CLI on the card at 512px full width, batch 2, float32
+    (the reference's defaults): 4 steps (D, G, D+R1, G), then 4 more after
+    --continue_train, then the checkpoint served by the inference CLI."""
+    from PIL import Image
+
+    rng = np.random.default_rng(1)
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ck")
+        common = [sys.executable, "-m", "ppst_tpu_torch.train", "--device", "cuda", "--name",
+                  "smoke", "--checkpoints_dir", ck, "--dataset_mode", "synthetic",
+                  "--crop_size", "512", "--load_size", "512", "--batch_size", "2",
+                  "--print_freq", "4", "--R1_once_every", "2", "--nThreads", "4"]
+        for extra in (["--total_nimgs", "8"], ["--total_nimgs", "16", "--continue_train", "true"]):
+            if "--continue_train" in extra:
+                # the resumed run starts at the image count iter.txt recorded
+                with open(os.path.join(ck, "smoke", "iter.txt")) as f:
+                    resumed_steps = (16 - int(f.read())) // 2
+            t0 = time.perf_counter()
+            out = subprocess.run(common + extra, cwd=ROOT, check=True, timeout=600,
+                                 capture_output=True, text=True).stdout
+            print(f"[cli] python -m ppst_tpu_torch.train {' '.join(extra)}: "
+                  f"{time.perf_counter() - t0:.1f} s; last lines: "
+                  f"{' | '.join(out.strip().splitlines()[-3:])}", flush=True)
+        raw = torch.load(os.path.join(ck, "smoke", "latest_checkpoint.pth"), map_location="cpu",
+                         weights_only=True)
+        with open(os.path.join(ck, "smoke", "loss_log.txt")) as f:
+            log = f.read()
+        want_d = 2 + (resumed_steps + 1) // 2  # D first, then every other step
+        if raw["steps"] != 16 or raw["num_d_iters"] != want_d or "G_styleContmix" not in log:
+            raise AssertionError(f"the train CLI's checkpoint reads steps {raw['steps']} and "
+                                 f"{raw['num_d_iters']} D steps (16 and {want_d} expected)")
+        paths = []
+        for name in ("content", "style"):
+            p = os.path.join(tmp, f"{name}.png")
+            Image.fromarray((rng.random((512, 512, 3)) * 255).astype(np.uint8)).save(p)
+            paths.append(p)
+        t0 = time.perf_counter()
+        subprocess.run(
+            [sys.executable, "-m", "ppst_tpu_torch.test", "--device", "cuda", "--checkpoint",
+             os.path.join(ck, "smoke", "latest_checkpoint.pth"), "--preprocess", "resize",
+             "--load_size", "512", "--crop_size", "512", "--input_structure_image", paths[0],
+             "--input_texture_image", paths[1], "--result_dir", os.path.join(tmp, "res")],
+            cwd=ROOT, check=True, timeout=600)
+        img = np.asarray(Image.open(os.path.join(tmp, "res", "ppst", "results", "simpleswapping",
+                                                 "content_style_1.00.png")))
+        if img.shape != (512, 512, 3):
+            raise AssertionError(f"the served checkpoint gave an image of shape {img.shape}")
+        print(f"[cli] python -m ppst_tpu_torch.test --checkpoint served the trained checkpoint "
+              f"in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def cli_phase():
@@ -513,11 +801,12 @@ def build_phase():
         _nvcc.build(_nvcc.PKG / "csrc" / f"{name}.cu")
         return time.perf_counter() - t0
 
-    names = ("tap", "corr_warp")
+    names = ("tap", "tap_bwd", "corr_warp")
     with ThreadPoolExecutor(len(names)) as pool:
         for name, secs in zip(names, pool.map(build, names)):
             print(f"[build] csrc/{name}.cu built in {secs:.1f} s", flush=True)
     tap_cuda._lib()
+    tap_cuda._bwd_lib()
     corr_warp_cuda._lib()
 
 
@@ -546,20 +835,30 @@ def main():
 
     phase("build", build_phase)
     k1 = phase("kernel fused_tap_1x1", kernel_phase, tap_cuda, bw, flops, card)
+    k2 = phase("kernel fused_tap_1x1_bwd", tap_bwd_phase, tap_cuda, bw, flops, card)
     k3 = phase("kernel corr_warp_blockwise", corr_warp_phase, corr_warp_cuda, bw, flops, card)
     k1_launches = phase("path stylize 512px", path_phase, tap_cuda, corr_warp_cuda,
                         PPSTConfig, PPSTModel, card)
     k3_launches = phase("path stylize_fused 1024px", fused_path_phase, tap_cuda, corr_warp_cuda,
                         PPSTConfig, PPSTModel, card)
     phase("grid", grid_phase, tap_cuda, corr_warp_cuda, PPSTConfig, PPSTModel, card)
+    k2_launches = phase("train 512px", train_phase, tap_cuda, corr_warp_cuda, PPSTConfig,
+                        PPSTModel, card)
     phase("reference", small_reference_check, PPSTConfig, PPSTModel)
+    phase("reference train", train_reference_check, PPSTConfig, PPSTModel)
     phase("cli", cli_phase)
+    phase("cli train", train_cli_phase)
 
     print(json.dumps({"kernels": [
         {"name": "fused_tap_1x1", "route": "cuda", "source": "ppst_tpu_torch/csrc/tap.cu",
          "replaces": "ppst_tpu/ops/tap_pallas.py:135", "launches": k1_launches,
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": None},
+        {"name": "fused_tap_1x1_bwd", "route": "cuda",
+         "source": "ppst_tpu_torch/csrc/tap_bwd.cu",
+         "replaces": "ppst_tpu/ops/tap_pallas.py:367", "launches": k2_launches,
+         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], "library_ms": None},
         {"name": "corr_warp_blockwise", "route": "cuda",
          "source": "ppst_tpu_torch/csrc/corr_warp.cu",
          "replaces": "ppst_tpu/ops/corr_pallas.py:72", "launches": k3_launches,

@@ -304,7 +304,9 @@ extern "C" {
 
 // Forward of the fused tap. x (B, n, 128), w1 (64, 128) and w2 (64, 64) bf16;
 // b1, b2 (64,) and a1, a2 (1,) float32; t, u, out (B, n, 64) bf16;
-// part (B, ceil(n / 256), 2, 128) and mr (B, 2, 128) float32 scratch. All
+// part (B, ceil(n / 256), 2, 128) float32 scratch. mr (B * 384 floats)
+// receives the three instance norms' mean and rstd, the backward's residuals:
+// (B, 2, 128) of x, then (B, 2, 64) of t and of u, back to back. All
 // pointers are device pointers, 16-byte aligned, of contiguous tensors.
 int ppst_fused_tap_fwd(const void* x, const void* w1, const void* b1, const void* a1,
                        const void* w2, const void* b2, const void* a2, void* t, void* u,
@@ -319,26 +321,28 @@ int ppst_fused_tap_fwd(const void* x, const void* w1, const void* b1, const void
   auto* tb = (__nv_bfloat16*)t;
   auto* ub = (__nv_bfloat16*)u;
   auto* pf = (float*)part;
-  auto* mf = (float*)mr;
+  auto* mf1 = (float*)mr;
+  auto* mf2 = mf1 + (long)batch * 2 * 128;
+  auto* mf3 = mf2 + (long)batch * 2 * 64;
   cudaError_t err;
 
   stats_kernel<128><<<grid, kStatsThreads, 0, s>>>(xb, pf, n, nblk);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  finalize_kernel<<<dim3(128 / 32, batch), 256, 0, s>>>(pf, mf, 128, nblk, n);
+  finalize_kernel<<<dim3(128 / 32, batch), 256, 0, s>>>(pf, mf1, 128, nblk, n);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   in_conv_kernel<128, 64, false><<<grid, kConvThreads, 0, s>>>(
-      xb, mf, (const __nv_bfloat16*)w1, (const float*)b1, (const float*)a1, tb, pf, n, nblk);
+      xb, mf1, (const __nv_bfloat16*)w1, (const float*)b1, (const float*)a1, tb, pf, n, nblk);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  finalize_kernel<<<dim3(64 / 32, batch), 256, 0, s>>>(pf, mf, 64, nblk, n);
+  finalize_kernel<<<dim3(64 / 32, batch), 256, 0, s>>>(pf, mf2, 64, nblk, n);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   in_conv_kernel<64, 64, true><<<grid, kConvThreads, 0, s>>>(
-      tb, mf, (const __nv_bfloat16*)w2, (const float*)b2, (const float*)a1, ub, pf, n, nblk);
+      tb, mf2, (const __nv_bfloat16*)w2, (const float*)b2, (const float*)a1, ub, pf, n, nblk);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  finalize_kernel<<<dim3(64 / 32, batch), 256, 0, s>>>(pf, mf, 64, nblk, n);
+  finalize_kernel<<<dim3(64 / 32, batch), 256, 0, s>>>(pf, mf3, 64, nblk, n);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const long nvec = (long)batch * n * 64 / 8;
   in_prelu_kernel<64><<<(unsigned)((nvec + 255) / 256), 256, 0, s>>>(
-      ub, mf, (const float*)a2, (__nv_bfloat16*)out, n, nvec);
+      ub, mf3, (const float*)a2, (__nv_bfloat16*)out, n, nvec);
   return (int)cudaGetLastError();
 }
 

@@ -2,8 +2,10 @@
 
 A copy of ``ppst_tpu.models.config.PPSTConfig``: the same fields, the same
 defaults, so one configuration describes both packages. Field names mirror
-the reference CLI flags. Fields that select JAX-only memory or remat
-strategies are kept for that reason and have no effect here.
+the reference CLI flags. ``remat``/``remat_nets`` select the training
+passes that ``torch.utils.checkpoint`` recomputes. The memory strategies
+that are not ported (``remat_save_kernels``, ``remat_taps``,
+``remat_blocks``, ``unbatch_passes``, ``corr_blockwise``) raise when set.
 """
 
 from __future__ import annotations
@@ -66,9 +68,11 @@ class PPSTConfig:
     # always stay float32.
     dtype: str = "float32"
 
-    # JAX-side rematerialization and memory knobs (no effect in this package)
+    # training passes recomputed in the backward (torch.utils.checkpoint):
+    # "all", or a comma list of call-site prefixes ("g" = every G pass)
     remat: bool = True
     remat_nets: str = "g"
+    # not ported: setting any of these raises
     remat_save_kernels: bool = False
     remat_taps: bool = False
     remat_blocks: bool = False
@@ -84,6 +88,19 @@ class PPSTConfig:
     fused_tap: bool = False
     # fused StyledConv kernel; not ported yet, the generator refuses it
     fused_styled_conv: bool = False
+
+    def __post_init__(self):
+        unported = [f for f in ("remat_save_kernels", "remat_taps", "remat_blocks",
+                                "unbatch_passes", "corr_blockwise") if getattr(self, f)]
+        if unported:
+            raise NotImplementedError(f"PPSTConfig: {', '.join(unported)} not ported yet")
+
+    @classmethod
+    def from_options(cls, opt) -> "PPSTConfig":
+        """The configuration from parsed CLI options: every field the
+        options name, the defaults for the rest."""
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in vars(opt).items() if k in names})
 
     @property
     def style_dim(self) -> int:

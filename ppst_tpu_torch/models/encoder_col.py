@@ -6,13 +6,17 @@ FromRGB -> N downsampling ResBlocks; at the input scale and after each
 block, GAP+GMP pooled statistics go through a 1x1 reducer and a 3-layer MLP
 projector into an L2-normalized style vector (4 scales). With
 ``corrmatrix`` the features are first warped through the correspondence,
-giving a parallel list of *warped* style vectors.
+giving a parallel list of *warped* style vectors. The warp at the input
+scale keeps the correspondence's gradient; deeper scales warp through a
+detached one (reference encoder_col.py:207). With ``mask`` (3 regions,
+max-pooled 2x per scale) the heads also project each region's masked
+features, and the warped features under the batch-swapped mask, for the
+RSCL loss.
 
 Warp scale factors follow the actual correspondence grid (sqrt(L)), as in
 the JAX package. ``corr_qk`` warps from normalized descriptors through the
 blockwise kernel (``ops.corr_warp_cuda``) instead of a dense matrix. The
-masked projections and the training route of ``corr_qk``
-(``cfg.corr_blockwise``) are not ported yet.
+training route of ``corr_qk`` (``cfg.corr_blockwise``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ppst_tpu_torch.models.config import PPSTConfig
 from ppst_tpu_torch.nn.layers import ConvLayer, ResBlock, TorchConv2d, TorchLinear
@@ -31,6 +36,8 @@ from ppst_tpu_torch.ops.corr_warp_cuda import corr_warp_blockwise
 class E2Output(NamedTuple):
     vectors: Tuple  # 4 x (B, style_dim) style vectors, coarse last
     vectors_w: Tuple  # warped variants (empty without corrmatrix)
+    projections_m: Tuple = ()  # 12 x (B, style_dim): 3 regions per scale
+    projections_mw: Tuple = ()  # the warped features' under the swapped mask
 
 
 def l2_normalize(x, eps: float = 1e-12):
@@ -46,6 +53,11 @@ def batch_swap(x):
     assert x.shape[0] % 2 == 0, "batch size must be a multiple of 2"
     y = x.reshape((x.shape[0] // 2, 2) + tuple(x.shape[1:]))
     return torch.flip(y, dims=(1,)).reshape(x.shape)
+
+
+def _max_pool2(m):
+    """2x2 / 2 max-pool of NHWC ``m``."""
+    return F.max_pool2d(m.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
 
 
 def _projection_head(conv1x1, projector, feat):
@@ -124,7 +136,7 @@ class ColorEncoder(nn.Module):
                                 getattr(self, f"projector{key}"), feat)
 
     def forward(self, x, corrmatrix=None, corr_out_hw=None, trunk=None,
-                return_trunk=False, warped_only=False, corr_qk=None):
+                return_trunk=False, warped_only=False, corr_qk=None, mask=None):
         """``corrmatrix``: dense (B, Lq, Lk) correspondence; ``corr_out_hw``
         the target (content) grid when it differs from the source grid.
 
@@ -135,16 +147,17 @@ class ColorEncoder(nn.Module):
 
         ``corr_qk``: instead of ``corrmatrix``, a pair of normalized
         descriptors ((B, Lq, C), (B, Lk, C)) (``ops.corr_warp_cuda.
-        normalize_desc``) warped through the blockwise kernel."""
+        normalize_desc``) warped through the blockwise kernel.
+
+        ``mask``: (B, H, W, 3) region masks for ``projections_m`` and, with
+        a correspondence, ``projections_mw``."""
         assert corrmatrix is None or corr_qk is None
-        if corr_qk is not None and self.cfg.corr_blockwise:
-            raise NotImplementedError(
-                "cfg.corr_blockwise (the differentiable blockwise scan of training) "
-                "is not ported yet")
-        fast_pool = self.cfg.e2_fast_warp_pool
+        # fast_pool only where the warped features are purely pooled
+        fast_pool = self.cfg.e2_fast_warp_pool and mask is None
+        swapped = batch_swap(mask) if mask is not None else None
         blocks = list(self.DownToGlobalCode1)
         keys = ["9"] + [str(i) for i in range(len(blocks))]
-        vectors, vectors_w, trunk_out = [], [], []
+        vectors, vectors_w, proj_m, proj_mw, trunk_out = [], [], [], [], []
         y = None
         for s, key in enumerate(keys):
             if trunk is not None:
@@ -152,13 +165,23 @@ class ColorEncoder(nn.Module):
             else:
                 y = self.FromRGB(x) if s == 0 else blocks[s - 1](y)
             trunk_out.append(y)
+            if s > 0 and mask is not None:
+                mask, swapped = _max_pool2(mask), _max_pool2(swapped)
             if not warped_only:
                 vectors.append(self._head(key, y))
+            yw = None
             if corrmatrix is not None:
-                yw = _warp_features(y, corrmatrix, corr_out_hw, fast_pool)
-                vectors_w.append(self._head(key, yw))
+                corr = corrmatrix if s == 0 else corrmatrix.detach()
+                yw = _warp_features(y, corr, corr_out_hw, fast_pool)
             elif corr_qk is not None:
-                yw = _warp_features_qk(y, corr_qk[0], corr_qk[1], corr_out_hw, fast_pool)
+                q, k = corr_qk if s == 0 else (corr_qk[0].detach(), corr_qk[1].detach())
+                yw = _warp_features_qk(y, q, k, corr_out_hw, fast_pool)
+            if yw is not None:
                 vectors_w.append(self._head(key, yw))
-        out = E2Output(tuple(vectors), tuple(vectors_w))
+            if mask is not None:
+                for i in range(3):
+                    proj_m.append(self._head(key, y * mask[..., i : i + 1]))
+                    if yw is not None:
+                        proj_mw.append(self._head(key, yw * swapped[..., i : i + 1]))
+        out = E2Output(tuple(vectors), tuple(vectors_w), tuple(proj_m), tuple(proj_mw))
         return (out, tuple(trunk_out)) if return_trunk else out

@@ -8,9 +8,10 @@ models/networks/generator.py:104-281).
   encoder downsampling -> ToRGB. Head blocks use global_codes[-1],
   upsampling block j uses global_codes[-2-j], ToRGB global_codes[0]; all
   codes are normalized on entry.
-* ``extract_features``: taps at each resolution through small conv stacks,
-  fused by ``layert`` (-> ``feat`` at structure resolution) and ``layert1``
-  (-> ``feat1`` at 4x that), feeding corrm/Rselfcorr.
+* ``extract_features``: taps of the detached trunk at each resolution
+  through small conv stacks, fused by ``layert`` (-> ``feat`` at structure
+  resolution) and ``layert1`` (-> ``feat1`` at 4x that), feeding
+  corrm/Rselfcorr.
 """
 
 from __future__ import annotations
@@ -191,13 +192,15 @@ class Generator(nn.Module):
         x = self.SpatialCodeModulation(spatial_code, codes[-1])
         for i in range(cfg.netG_num_base_resnet_layers):
             x = getattr(self, f"HeadResnetBlock{i}")(x, codes[-1], take2(), generator)
-        feas = [self.layer32(x)] if extract_features else []
+        # the taps read a detached trunk: their losses train only the feature
+        # branch, never the trunk above it
+        feas = [self.layer32(x.detach())] if extract_features else []
         h0, w0 = x.shape[1], x.shape[2]
         for j in range(n_up):
             x = getattr(self, f"UpsamplingResBlock{2 ** (4 + j)}")(
                 x, codes[-2 - j], take2(), generator)
             if extract_features:
-                feas.append(getattr(self, f"layer{2 ** (6 + j)}")(x))
+                feas.append(getattr(self, f"layer{2 ** (6 + j)}")(x.detach()))
 
         rgb = self.ToRGB(x, codes[0])
         if not extract_features:
@@ -209,15 +212,17 @@ class Generator(nn.Module):
         return rgb, self.layert(feat), self.layert1(feat1)
 
 
-def make_fixed_noise(cfg: PPSTConfig, generator: torch.Generator, batch: int, crop: int):
-    """A fixed noise list for flicker-free inference: one (B, H, W, 1) tensor
-    per StyledConv in call order, for ``Generator.forward(noises=...)``, on
-    the generator's device."""
+def make_fixed_noise(cfg: PPSTConfig, generator: torch.Generator, batch: int, crop: int,
+                     dtype=torch.float32):
+    """A fixed noise list: one (B, H, W, 1) tensor per StyledConv in call
+    order, for ``Generator.forward(noises=...)``, on the generator's device.
+    Float32 noise promotes a bf16 generator to float32 (ROADMAP W6); pass
+    the compute ``dtype`` to keep it in bf16."""
     grid = crop // (2 ** cfg.netE_num_downsampling_sp)
     shapes = [grid] * (2 * cfg.netG_num_base_resnet_layers)
     h = grid
     for _ in range(cfg.netE_num_downsampling_sp):
         h *= 2
         shapes += [h, h]
-    return [torch.randn((batch, s, s, 1), generator=generator, device=generator.device)
+    return [torch.randn((batch, s, s, 1), generator=generator, device=generator.device).to(dtype)
             for s in shapes]

@@ -1,10 +1,17 @@
-"""The PPST model's inference API (counterpart of the inference half of
-``ppst_tpu/models/ppst.py``; reference models/ppst_model.py:264-315).
+"""The PPST model (counterpart of ``ppst_tpu/models/ppst.py``; reference
+models/ppst_model.py): the inference API (:264-315) and the training losses
+(:105-235).
 
-``PPSTModel`` holds E1, E2 and G under the reference's ``state_dict``
-prefixes (``E1.``, ``E2.``, ``G.``), so a reference checkpoint loads into it.
-Images are NHWC in [-1, 1]; the compute dtype follows the images' dtype, as
-in the JAX package. Noise is drawn from the ``torch.Generator`` passed in.
+``PPSTModel`` holds E1, E2, G and D under the reference's ``state_dict``
+prefixes (``E1.``, ``E2.``, ``G.``, ``D.``), so a reference checkpoint loads
+into it. Beside them it keeps the RSCL queues and the D-step count (the
+training state), and the LPIPS network, which is a fixed part of the loss
+and not in the ``state_dict``. Images are NHWC in [-1, 1]; the compute dtype
+follows the images' dtype, as in the JAX package. Noise is drawn from the
+``torch.Generator`` passed in.
+
+The serving methods run under ``torch.inference_mode``; the loss methods
+run with grad, for ``train.steps``.
 """
 
 from __future__ import annotations
@@ -13,15 +20,25 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ppst_tpu_torch.models.config import PPSTConfig
-from ppst_tpu_torch.models.encoder_col import ColorEncoder
+from ppst_tpu_torch.models.discriminator import Discriminator
+from ppst_tpu_torch.models.encoder_col import ColorEncoder, batch_swap
 from ppst_tpu_torch.models.encoder_con import ContentEncoder
-from ppst_tpu_torch.models.generator import Generator
+from ppst_tpu_torch.models.generator import Generator, make_fixed_noise
+from ppst_tpu_torch.models.losses import (
+    gan_loss,
+    init_rscl_state,
+    l1_loss,
+    rscl_enqueue,
+    rscl_loss_sharded,
+)
 from ppst_tpu_torch.nn.layers import init_weights
-from ppst_tpu_torch.ops.corr import corrm, rselfcorr
+from ppst_tpu_torch.ops.corr import corrm, rselfcorr, warp
 from ppst_tpu_torch.ops.corr_warp_cuda import normalize_desc
 from ppst_tpu_torch.ops.guided_filter import guided_filter
+from ppst_tpu_torch.ops.lpips import LPIPS
 
 
 def resolve_device(device=None) -> torch.device:
@@ -36,16 +53,26 @@ def resolve_device(device=None) -> torch.device:
 
 class PPSTModel(nn.Module):
     def __init__(self, cfg: PPSTConfig, device=None, seed: int = 0):
-        """E1, E2 and G with weights drawn from ``seed``, on ``device``
-        (CUDA by default)."""
+        """E1, E2, G, D and the RSCL queues drawn from ``seed``, in that
+        order, on ``device`` (CUDA by default)."""
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
         self.E1 = ContentEncoder(cfg)
         self.E2 = ColorEncoder(cfg)
         self.G = Generator(cfg)
-        init_weights(self, torch.Generator().manual_seed(seed))
+        # registered after G, so that E1, E2 and G draw the weights they drew
+        # before D was ported
+        self.D = Discriminator(cfg)
+        gen = torch.Generator().manual_seed(seed)
+        init_weights(self, gen)
+        rscl = init_rscl_state(gen, code_dim=cfg.style_dim)
+        self.register_buffer("rscl_queues", rscl["queues"], persistent=False)
+        self.register_buffer("rscl_ptrs", rscl["ptrs"], persistent=False)
+        self.num_d_iters = 0
         self.to(device)
+        # a fixed network of the loss: outside the parameters and the state_dict
+        object.__setattr__(self, "lpips", LPIPS().to(device))
         self.eval()
 
     @property
@@ -53,17 +80,27 @@ class PPSTModel(nn.Module):
         return next(self.parameters()).device
 
     def load_reference_checkpoint(self, path: str):
-        """Load E1/E2/G from a reference ``.pth`` (the whole PPSTModel's
-        state_dict; D, the RSCL queues and dead members are ignored)."""
+        """Load E1/E2/G, and D when the file has it, from a reference
+        ``.pth`` (the whole PPSTModel's state_dict, or a ``train.bundle``
+        checkpoint; the RSCL queues and dead members are ignored)."""
         sd = torch.load(path, map_location="cpu", weights_only=True)
         if "state_dict" in sd:
             sd = sd["state_dict"]
         own = self.state_dict()
-        missing = [k for k in own if k not in sd]
+        keys = [k for k in own if not k.startswith("D.") or any(j.startswith("D.") for j in sd)]
+        missing = [k for k in keys if k not in sd]
         if missing:
             raise KeyError(f"checkpoint lacks {len(missing)} keys, e.g. {missing[:3]}")
         # the reference stores some biases as (1, C, 1, 1)
-        self.load_state_dict({k: sd[k].reshape(own[k].shape) for k in own})
+        self.load_state_dict({k: sd[k].reshape(own[k].shape) for k in keys}, strict=False)
+
+    # -- training state ---------------------------------------------------
+
+    def rscl_state(self) -> dict:
+        return {"queues": self.rscl_queues, "ptrs": self.rscl_ptrs}
+
+    def set_rscl_state(self, state: dict):
+        self.rscl_queues, self.rscl_ptrs = state["queues"], state["ptrs"]
 
     # -- network applications -------------------------------------------
 
@@ -199,6 +236,205 @@ class PPSTModel(nn.Module):
         """[-1, 1] float -> uint8 on the images' device (``tensor2im``'s math),
         so a serving row crosses to the host as a quarter of the bytes."""
         return ((images.float() + 1.0) * 127.5).clamp(0, 255).to(torch.uint8)
+
+    @torch.inference_mode()
+    def snapshot_core(self, real, generator: Optional[torch.Generator] = None):
+        """Structure code, reconstruction and batch-swapped style mix of
+        ``real``: the training snapshot's core."""
+        sp = self.E1(real)
+        gl = self.E2(real).vectors
+        rec = self.G(sp, list(gl), generator=generator)
+        mix = self.G(sp, [self.swap(g) for g in gl], generator=generator)
+        return sp, rec, mix
+
+    # -- training losses (reference ppst_model.py:105-235) -----------------
+    # The batch helpers keep the JAX package's names; in one process its
+    # per-shard forms (n_dev > 1) reduce to these.
+
+    swap = staticmethod(batch_swap)
+
+    @staticmethod
+    def half_batch(x):
+        """The first half of the batch (reference ppst_model.py:129-132)."""
+        return x[: x.shape[0] // 2]
+
+    @staticmethod
+    def shard_concat(parts):
+        return torch.cat(parts, dim=0)
+
+    @staticmethod
+    def shard_split(x, sizes):
+        return list(torch.split(x, sizes, dim=0))
+
+    def _r(self, fn, kind: str):
+        """``fn``, recomputed in the backward instead of keeping its
+        activations (cfg.remat) when cfg.remat_nets names ``kind``: "all",
+        or a comma list matched by prefix ("g" every g_* call site, "g_mix"
+        only the rec + mix pass)."""
+        nets = self.cfg.remat_nets
+        if not self.cfg.remat or (nets != "all" and not any(
+                kind == n or kind.startswith(n + "_") for n in nets.split(","))):
+            return fn
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+    def _g_pass(self, kind: str, extract_features: bool = False):
+        """A G pass for the losses, rematerialized per ``_r``. Its noise is
+        drawn from the generator BEFORE the checkpointed region: the
+        recompute restores the default RNGs, not an explicit generator."""
+        fn = self._r(lambda sp, gl, noises: self.G(
+            sp, list(gl), extract_features=extract_features, noises=noises), kind)
+        n_up = self.cfg.netE_num_downsampling_sp
+
+        def run(sp, gl, generator):
+            noises = make_fixed_noise(self.cfg, generator, sp.shape[0], sp.shape[1] * 2**n_up,
+                                      dtype=sp.dtype)
+            return fn(sp, tuple(gl), noises)
+
+        return run
+
+    def _training_corrs(self, sps):
+        """(corr_sw, corr_self): corrm(sps, swap(sps)) and corrm(sps, sps)."""
+        return self.corrm(sps, self.swap(sps)), self.corrm(sps, sps)
+
+    @staticmethod
+    def _warp_any(x, corr):
+        return warp(x, corr)
+
+    def discriminator_losses(self, real, mask, generator: torch.Generator):
+        """D's losses (reference ppst_model.py:105-138). The generator-side
+        passes carry no gradient; real, rec and mix are scored in one D
+        pass. ``mask`` is unused, as in the reference."""
+        cfg = self.cfg
+        del mask
+        self.num_d_iters += 1
+        b = real.shape[0]
+        assert b % 2 == 0, f"batch {b} must be even"
+        g_fwd, g_ext = self._g_pass("g_mix"), self._g_pass("g_ext", extract_features=True)
+        with torch.no_grad():
+            sp = self.E1(real)
+            gl = list(self.E2(real).vectors)
+            gl_w = None
+            if cfg.training_stage == 2:
+                _, feas, feas1 = g_ext(sp, gl, generator)
+                corr_sw, corr_self = self._training_corrs(
+                    torch.cat([feas, rselfcorr(feas1)], dim=-1))
+                if cfg.lambda_StyleCon > 0.0:
+                    gl_w = list(self.E2(real, corrmatrix=corr_sw).vectors_w)
+                # reconstruction styles are the self-corr-warped vectors
+                gl = list(self.E2(real, corrmatrix=corr_self).vectors_w)
+            gl_half = [self.half_batch(g) for g in gl]
+            mix = None
+            if gl_w is not None:
+                # one batched G pass for mix (B) and rec (B/2)
+                g_out = g_fwd(self.shard_concat([self.swap(sp), self.half_batch(sp)]),
+                              [self.shard_concat([w, h]) for w, h in zip(gl_w, gl_half)],
+                              generator)
+                mix, rec = self.shard_split(g_out, [b, b // 2])
+            else:
+                rec = g_fwd(self.half_batch(sp), gl_half, generator)
+
+        losses = {}
+        if cfg.lambda_GAN > 0.0:
+            parts = [real, rec] + ([mix] if mix is not None else [])
+            scores = self.shard_split(self.D(self.shard_concat(parts)),
+                                      [p.shape[0] for p in parts])
+            losses["D_real"] = gan_loss(scores[0], True) * cfg.lambda_GAN
+            losses["D_rec"] = gan_loss(scores[1], False) * 0.5 * cfg.lambda_GAN
+            if len(scores) > 2:
+                losses["D_mix"] = gan_loss(scores[2], False) * 0.5 * cfg.lambda_GAN
+        return losses
+
+    def r1_loss(self, real):
+        """Lazy R1 gradient penalty (reference ppst_model.py:140-159): a
+        double backward through D."""
+        if self.cfg.lambda_R1 <= 0.0:
+            return {"D_R1": torch.zeros((), device=real.device)}
+        x = real.detach().requires_grad_(True)
+        (grad,) = torch.autograd.grad(self.D(x).sum(), x, create_graph=True)
+        penalty = (grad.float() ** 2).sum((1, 2, 3)) * (self.cfg.lambda_R1 * 0.5)
+        return {"D_R1": penalty.mean()}
+
+    def generator_losses(self, real, mask, generator: torch.Generator):
+        """G's, E1's and E2's losses (reference ppst_model.py:161-235).
+        Returns (losses, metrics, new RSCL state); the caller installs the
+        state after the update."""
+        cfg = self.cfg
+        losses, metrics = {}, {}
+        b = real.shape[0]
+        assert b % 2 == 0, f"batch {b} must be even"
+        e1 = self._r(self.E1, "e1")
+        e2_plain = self._r(lambda x: tuple(self.E2(x).vectors), "e2")
+        e2_w = self._r(lambda x, c: tuple(self.E2(x, corrmatrix=c).vectors_w), "e2")
+        e2_full = self._r(lambda x, c, m: self.E2(x, corrmatrix=c, mask=m), "e2")
+        e2_mask = self._r(lambda x, m: tuple(self.E2(x, mask=m).projections_m), "e2")
+        g_mix, g_cyc = self._g_pass("g_mix"), self._g_pass("g_cyc")
+        g_ext = self._g_pass("g_ext", extract_features=True)
+        d_fwd = self._r(self.D, "d")
+        lpips_fn = self._r(self.lpips, "lpips")
+        new_rscl = self.rscl_state()
+
+        sp = e1(real)
+        gl = list(e2_plain(real))
+        gl_w = pro_ms = pro_mw = None
+        if cfg.training_stage == 2:
+            _, feas, feas1 = g_ext(sp, gl, generator)
+            corr_sw, corr_self = self._training_corrs(torch.cat([feas, rselfcorr(feas1)], dim=-1))
+            gl = list(e2_w(real, corr_self))
+            if cfg.lambda_StyleCon > 0.0:
+                out = e2_full(real, corr_sw, mask)
+                pro_ms, gl_w, pro_mw = out.projections_m, out.vectors_w, out.projections_mw
+            if cfg.lambda_Cycwarp > 0.0:
+                image_rec = self._warp_any(self._warp_any(real, corr_sw), self.swap(corr_sw))
+                losses["image_warp_reg"] = lpips_fn(image_rec, real).mean() * cfg.lambda_Cycwarp
+            if cfg.lambda_Maskwarp > 0.0:
+                losses["Mask_warp"] = (l1_loss(self._warp_any(mask, corr_sw), self.swap(mask))
+                                       * cfg.lambda_Maskwarp)
+
+        mix = None
+        if cfg.training_stage == 2 and cfg.lambda_StyleCon > 0.0:
+            # one batched G pass for rec (B) and mix (B)
+            g_out = g_mix(self.shard_concat([sp, self.swap(sp)]),
+                          [self.shard_concat([a, w]) for a, w in zip(gl, gl_w)], generator)
+            rec, mix = self.shard_split(g_out, [b, b])
+        else:
+            rec = g_mix(sp, gl, generator)
+        if cfg.lambda_L1 > 0.0:
+            losses["G_L1"] = l1_loss(rec, real) * cfg.lambda_L1
+
+        if mix is not None:
+            # one batched E2 mask-projection pass over both outputs
+            pro_batched = e2_mask(self.shard_concat([mix, rec]),
+                                  self.shard_concat([self.swap(mask), mask]))
+            pro_3m, pro_2m = zip(*(self.shard_split(p, [b, b]) for p in pro_batched))
+            sp_3 = e1(mix)
+            cyc = g_cyc(self.half_batch(self.swap(sp_3)), [self.half_batch(g) for g in gl],
+                        generator)
+            metrics["L1_dist"] = l1_loss(cyc, self.half_batch(real))
+            losses["G_L1_cyc"] = metrics["L1_dist"] * 3.0
+
+            styleloss = styleloss2 = 0.0
+            for scale in range(4):
+                sl = slice(3 * scale, 3 * scale + 3)
+                # region-major (3, B, style_dim) stacks
+                key0 = torch.stack(pro_ms[sl]).detach()
+                keyw = torch.stack(pro_mw[sl]).detach()
+                queue = self.rscl_queues[scale].detach()
+                styleloss = styleloss + rscl_loss_sharded(
+                    torch.stack(pro_3m[sl]), keyw, key0, queue, cfg.nce_T)
+                styleloss2 = styleloss2 + rscl_loss_sharded(
+                    torch.stack(pro_2m[sl]), key0, keyw, queue, cfg.nce_T)
+                new_rscl = rscl_enqueue(new_rscl, scale, key0, keyw)
+            losses["G_styleContmix"] = styleloss * cfg.lambda_StyleCon
+            losses["G_styleContrec"] = styleloss2 * cfg.lambda_StyleCon
+
+        if cfg.lambda_GAN > 0.0:
+            if mix is not None:
+                s_rec, s_mix = self.shard_split(d_fwd(self.shard_concat([rec, mix])), [b, b])
+                losses["G_GAN_rec"] = gan_loss(s_rec, True) * cfg.lambda_GAN * 0.5
+                losses["G_GAN_mix"] = gan_loss(s_mix, True) * cfg.lambda_GAN
+            else:
+                losses["G_GAN_rec"] = gan_loss(d_fwd(rec), True) * cfg.lambda_GAN * 0.5
+        return losses, metrics, new_rscl
 
 
 def take_rows(x, idx):

@@ -134,12 +134,14 @@ class EqualConv2d(_Init):
 
 
 class EqualLinear(_Init):
-    """Linear with run-time 1/sqrt(fan_in) scaling
-    (reference stylegan2_layers.py:205-247)."""
+    """Linear with run-time 1/sqrt(fan_in) scaling and an optional fused
+    bias + leaky ReLU activation (reference stylegan2_layers.py:205-247)."""
 
-    def __init__(self, in_dim, out_dim):
+    def __init__(self, in_dim, out_dim, activation: Optional[str] = None):
         super().__init__()
+        assert activation in (None, "fused_lrelu"), activation
         self.scale = 1.0 / math.sqrt(in_dim)
+        self.activation = activation
         self.weight = nn.Parameter(torch.empty(out_dim, in_dim))
         self.bias = nn.Parameter(torch.zeros(out_dim))
 
@@ -149,6 +151,8 @@ class EqualLinear(_Init):
 
     def forward(self, x):
         y = F.linear(x, self.weight.to(x.dtype) * self.scale)
+        if self.activation == "fused_lrelu":
+            return fused_leaky_relu(y, self.bias)
         return y + self.bias.to(y.dtype)
 
 
@@ -371,15 +375,16 @@ class ConvLayer(nn.Module):
 
 
 class ResBlock(nn.Module):
-    """(conv3 + conv3-down + 1x1-skip-down) / sqrt(2) with reflection
-    padding on the 3x3 convs, as the encoders build it
-    (reference stylegan2_layers.py:559-579)."""
+    """(conv3 + conv3-down + 1x1-skip-down) / sqrt(2) (reference
+    stylegan2_layers.py:559-579); the encoders reflection-pad the 3x3
+    convs, the discriminator zero-pads them."""
 
-    def __init__(self, in_ch, out_ch, blur_kernel=(1, 3, 3, 1), norm="none"):
+    def __init__(self, in_ch, out_ch, blur_kernel=(1, 3, 3, 1), norm="none",
+                 reflection_pad=True):
         super().__init__()
-        self.conv1 = ConvLayer(in_ch, in_ch, 3, reflection_pad=True, norm=norm)
+        self.conv1 = ConvLayer(in_ch, in_ch, 3, reflection_pad=reflection_pad, norm=norm)
         self.conv2 = ConvLayer(in_ch, out_ch, 3, downsample=True, blur_kernel=blur_kernel,
-                               reflection_pad=True, norm=norm)
+                               reflection_pad=reflection_pad, norm=norm)
         self.skip = ConvLayer(in_ch, out_ch, 1, downsample=True, blur_kernel=blur_kernel,
                               activate=False, bias=False, norm=norm)
 

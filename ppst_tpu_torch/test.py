@@ -8,8 +8,10 @@ with ``--input_texture_image``. ``content_style_grid_generation`` (alias
 there, and writes the grid as an HTML page.
 
 Runs on CUDA unless ``--device cpu`` is given, and refuses to start when
-CUDA is asked for and absent. ``--checkpoint`` loads a reference ``.pth``;
-without it the weights are drawn from ``--seed``.
+CUDA is asked for and absent. ``--checkpoint`` loads a reference ``.pth`` or
+a checkpoint of ``python -m ppst_tpu_torch.train`` (with the network-shape
+flags it was trained with); without it the weights are drawn from
+``--seed``.
 """
 
 from __future__ import annotations
@@ -22,16 +24,9 @@ from ppst_tpu_torch.data.imagefolder_dataset import ImageFolderDataset, iterate_
 from ppst_tpu_torch.evaluation import ALIASES, EVALUATORS, find_evaluator_using_name
 from ppst_tpu_torch.models.config import PPSTConfig
 from ppst_tpu_torch.models.ppst import PPSTModel, resolve_device
+from ppst_tpu_torch.options import add_network_flags, str2bool
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def str2bool(v):
-    if v.lower() in ("yes", "true", "t", "y", "1"):
-        return True
-    if v.lower() in ("no", "false", "f", "n", "0"):
-        return False
-    raise argparse.ArgumentTypeError("Boolean value expected.")
 
 
 def build_parser():
@@ -58,7 +53,7 @@ def build_parser():
     p.add_argument("--device", default="cuda")
     p.add_argument("--checkpoint", default=None, help="reference .pth state_dict")
     p.add_argument("--seed", type=int, default=0)
-    return p
+    return add_network_flags(p)
 
 
 def main(argv=None):
@@ -69,7 +64,7 @@ def main(argv=None):
     if not grid and not (opt.input_structure_image and opt.input_texture_image):
         parser.error("simple_swapping needs --input_structure_image and --input_texture_image")
     device = resolve_device(opt.device)
-    cfg = PPSTConfig(crop_size=opt.crop_size, dtype=opt.dtype, fused_tap=opt.fused_tap)
+    cfg = PPSTConfig.from_options(opt)
     model = PPSTModel(cfg, device=device, seed=opt.seed)
     if opt.checkpoint:
         model.load_reference_checkpoint(opt.checkpoint)

@@ -1,10 +1,11 @@
 """Weight bridge: ``ppst_tpu`` parameter trees -> this package's state_dict.
 
-Takes the JAX package's ``{"E1", "E2", "G"}`` param trees as nested dicts of
-numpy arrays and returns the ``state_dict`` of ``PPSTModel`` (the reference
-PyTorch key names). It is the inverse of ``ppst_tpu/util/convert_torch.py``:
-conv kernels (kh, kw, I, O) -> (O, I, kh, kw), linears (I, O) -> (O, I).
-The discriminator waits for the training slice.
+Takes the JAX package's ``{"E1", "E2", "G", "D"}`` param trees as nested
+dicts of numpy arrays and returns the ``state_dict`` of ``PPSTModel`` (the
+reference PyTorch key names). It is the inverse of
+``ppst_tpu/util/convert_torch.py``: conv kernels (kh, kw, I, O) ->
+(O, I, kh, kw), linears (I, O) -> (O, I). ``lpips_from_flax`` and
+``rscl_from_flax`` carry the LPIPS weights and the RSCL state the same way.
 """
 
 from __future__ import annotations
@@ -133,10 +134,47 @@ def from_g(out: _Out, p):
     _torch_conv(out.sub("layert1.1."), p["fuse1_conv"])
 
 
+def from_d(out: _Out, p):
+    """Inverse of convert_torch.convert_d: the ResBlock at 2^i is
+    ``convs.<9 - i>`` (``convs.<s>x<s>`` above 256)."""
+    core, o = p["core"], out.sub("stylegan2_D.")
+    _conv_layer(o.sub("convs.0."), core["from_rgb"])
+    for key in (k for k in core if k.startswith("res")):
+        i = int(key[3:]).bit_length() - 1
+        _res_block(o.sub(f"convs.{9 - i if i <= 8 else key[3:] + 'x' + key[3:]}."), core[key])
+    _conv_layer(o.sub("final_conv."), core["final_conv"])
+    _linear(o.sub("final_linear.0."), core["fc0"])
+    _linear(o.sub("final_linear.1."), core["fc1"])
+
+
 def from_flax(params: Dict) -> Dict[str, torch.Tensor]:
-    """``{"E1", "E2", "G"}`` flax param trees -> ``PPSTModel`` state_dict."""
+    """``{"E1", "E2", "G"[, "D"]}`` flax param trees -> ``PPSTModel``
+    state_dict (D's keys only when the tree has D)."""
     sd: Dict[str, torch.Tensor] = {}
     from_e1(_Out(sd, "E1."), params["E1"])
     from_e2(_Out(sd, "E2."), params["E2"])
     from_g(_Out(sd, "G."), params["G"])
+    if "D" in params:
+        from_d(_Out(sd, "D."), params["D"])
     return sd
+
+
+def lpips_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """ppst_tpu.ops.lpips variables -> ``ops.lpips.LPIPS`` state_dict."""
+    p = variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    out = _Out(sd)
+    for i, tv in enumerate((0, 3, 6, 8, 10)):
+        conv = p["net"][f"conv{i}"]
+        out[f"net.slice{i + 1}.{tv}.weight"] = _cw(conv["kernel"])
+        out[f"net.slice{i + 1}.{tv}.bias"] = conv["bias"]
+        out[f"lin{i}.model.1.weight"] = np.asarray(p[f"lin{i}"]).reshape(1, -1, 1, 1)
+    return sd
+
+
+def rscl_from_flax(state: Dict) -> Dict[str, torch.Tensor]:
+    """ppst_tpu's training state -> the RSCL state ``PPSTModel.
+    set_rscl_state`` takes."""
+    rscl = state["rscl"]
+    return {"queues": torch.from_numpy(np.array(rscl["queues"], np.float32)),
+            "ptrs": torch.from_numpy(np.array(rscl["ptrs"], np.int64))}

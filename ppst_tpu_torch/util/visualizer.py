@@ -1,0 +1,29 @@
+"""Console and ``loss_log.txt`` reporting (counterpart of
+``ppst_tpu/util/visualizer.py``; the live part of reference
+util/visualizer.py:272-291)."""
+
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+
+
+class Visualizer:
+    def __init__(self, opt):
+        self.log_name = os.path.join(opt.checkpoints_dir, opt.name, "loss_log.txt")
+        os.makedirs(os.path.dirname(self.log_name), exist_ok=True)
+        with open(self.log_name, "a") as f:
+            f.write(f"================ Training Loss ({time.strftime('%c')}) ================\n")
+
+    def print_current_losses(self, steps, times, losses):
+        message = f"(iters: {steps}"
+        for name, t in times.items():
+            message += f", {name}: {t * 1000:.1f}ms/img"
+        message += ") "
+        for k, v in losses.items():
+            message += f"{k}: {float(np.mean(np.asarray(v))):.3f} "
+        print(message, flush=True)
+        with open(self.log_name, "a") as f:
+            f.write(message + "\n")

@@ -179,7 +179,8 @@ def _generator_outputs(numpy_params=False):
     in test_torch_stylize.py ran JAX)."""
     rng = np.random.default_rng(0)
     model = PPSTModel(PPSTConfig(**NARROW), device="cpu")
-    params = convert_reference_state_dict({k: v.numpy() for k, v in model.state_dict().items()})
+    params = convert_reference_state_dict({k: v.numpy() for k, v in model.state_dict().items()},
+                                          crop_size=64)
     cfg = JaxConfig(**NARROW)
     sp = rng.standard_normal((2, 8, 8, cfg.spatial_code_ch)).astype(np.float32)
     gl = [rng.standard_normal((2, cfg.style_dim)).astype(np.float32) for _ in range(4)]

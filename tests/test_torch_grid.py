@@ -45,7 +45,8 @@ def grid():
     with torch.no_grad():
         for i, m in enumerate(mod for mod in model.modules() if isinstance(mod, NoiseInjection)):
             m.weight.fill_(0.1 + 0.05 * i)
-    params = convert_reference_state_dict({k: v.numpy() for k, v in model.state_dict().items()})
+    params = convert_reference_state_dict({k: v.numpy() for k, v in model.state_dict().items()},
+                                          crop_size=64)
     imgs = torch.from_numpy(
         np.random.default_rng(0).standard_normal((4, CROP, CROP, 3)).astype(np.float32) * 0.3)
     n_ext = make_fixed_noise(model.cfg, torch.Generator().manual_seed(5), 4, CROP)

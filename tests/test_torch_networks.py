@@ -36,7 +36,7 @@ def nets():
                               if isinstance(mod, NoiseInjection)):
             m.weight.fill_(0.1 + 0.05 * i)
     sd = {k: v.numpy() for k, v in model.state_dict().items()}
-    return model, convert_reference_state_dict(sd), JaxConfig(**NARROW)
+    return model, convert_reference_state_dict(sd, crop_size=64), JaxConfig(**NARROW)
 
 
 def _close(got, want, tol=TOL):

@@ -30,7 +30,7 @@ NARROW = dict(crop_size=64, netE_scale_capacity=0.25, netE2_scale_capacity=0.25,
 def _pair(cfg_kw):
     model = PPSTModel(PPSTConfig(**cfg_kw), device="cpu")
     params = convert_reference_state_dict(
-        {k: v.numpy() for k, v in model.state_dict().items()})
+        {k: v.numpy() for k, v in model.state_dict().items()}, crop_size=cfg_kw["crop_size"])
     return model, params
 
 
