@@ -12,27 +12,34 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    off) at the main paths' shapes and an odd shape, with its determinism, its
    time, the plain version's time, the time of the one PyTorch call that
    computes the same function where there is one, and the least time the
-   card could take; the fused tap's backward (K2) with and without dx;
+   card could take; the fused tap's backward (K2) with and without dx; the
+   fused StyledConv (K6) with the unfused StyledConv's time beside it, and
+   its backward with and without dx;
 3. path: 512px ``stylize`` at full width in bf16 with the fused tap and the
    guided filter, batch 1 then batch 8 pairs; then 1024px ``stylize_fused``
-   (the blockwise correspondence) at batch 1; each checks its output and the
-   kernels it launched;
+   (the blockwise correspondence) at batch 1; then 512px ``stylize`` with the
+   fused StyledConv too (K6 22 times a call), its output against the unfused
+   path's, and one 1024px ``stylize_fused`` call with it; each checks its
+   output and the kernels it launched;
 4. grid: a 512px 4x8 grid, dense and blockwise on the same banks, and a
    1024px 2x4 blockwise grid, with pairs/s amortized over extraction;
 5. train: 512px full-width training in bf16 with the fused tap at batch 4
    (D, G and D+R1 steps through ``train.steps``): step times, training
-   images/s, peak memory, every loss, every network moving, and the launches
-   of K1 and K2 (K2 once per G step) and K3 (none);
+   images/s, peak memory, every loss, every network moving, one profiled G
+   step, and the launches of K1 and K2 (K2 once per G step) and K3 (none);
+   then the same with the fused StyledConv (K6 and its backward counted);
 6. reference: a narrow float32 model at crop 64 on the card against the CPU
    run of the same code (``stylize``, ``stylize_fused``, blockwise
    ``grid_pairs``; the D step's, the R1 penalty's and the G step's losses
-   and gradients), and the narrow generator's bf16-vs-float32 distance on
-   the card and on the CPU;
+   and gradients), the narrow generator's bf16-vs-float32 distance on the
+   card and on the CPU, and the narrow bf16 model with the fused StyledConv
+   on the card against the CPU (generator outputs, one G step);
 7. cli: ``python -m ppst_tpu_torch.test --device cuda`` on two generated
-   512px PNGs (simple_swapping), then the grid evaluator on a generated
-   folder of 2 + 2 512px PNGs; ``python -m ppst_tpu_torch.train --device
-   cuda`` at 512px, batch 2, then ``--continue_train``, then its checkpoint
-   served by ``python -m ppst_tpu_torch.test --checkpoint``.
+   512px PNGs (simple_swapping), again with ``--fused_styled_conv true``, then
+   the grid evaluator on a generated folder of 2 + 2 512px PNGs; ``python -m
+   ppst_tpu_torch.train --device cuda`` at 512px, batch 2, then
+   ``--continue_train``, then its checkpoint served by ``python -m
+   ppst_tpu_torch.test --checkpoint``.
 
 Each phase prints its seconds. Then the script prints the ``kernels`` line
 and, last, the ``ok`` line. Without a CUDA device it exits non-zero before
@@ -78,6 +85,11 @@ CORR_SHAPES = [(1, 4096, 4096, 512, 32, torch.bfloat16), (1, 4096, 4096, 512, 25
 # two round the correspondence at different places. Measured on an H100:
 # 0.0137 max, 0.00156 mean; the bound leaves 3.5x.
 GRID_MAX_ABS, GRID_MEAN_ABS = 0.05, 0.005
+# 512px stylize with the fused StyledConv against the unfused path, same
+# weights (nonzero noise gains and biases), pinned bf16 noise, on the [-1, 1]
+# scale. Measured on the CPU at full width: 0.0053 max, 0.0012 mean at 64px,
+# 0.0087 and 0.0017 at 128px; the bounds leave 5.7x and 3x over the larger.
+FUSED_SC_MAX_ABS, FUSED_SC_MEAN_ABS = 0.05, 0.005
 NARROW = dict(crop_size=64, netE_scale_capacity=0.25, netE2_scale_capacity=0.25,
               global_code_ch=64, spatial_code_ch=16, netG_resnet_ch=32,
               netG_scale_capacity=0.125)
@@ -92,6 +104,21 @@ TAP_BWD_NAMES = ("dx", "dw1", "db1", "da1", "dw2", "db2", "da2")
 # tests/test_torch_train.py (port against JAX on the CPU), whose max-pools
 # and kinks flip where two values nearly tie
 TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL, TRAIN_GRAD_COS = 1e-4, 5e-2, 5e-3, 0.995
+# K6 (the fused StyledConv) at (B, H, W, Cin, Cout): an odd shape, then the
+# 512px generator's (heads at 64x64, the up-blocks' conv2 at 128-512px) at
+# batch 8 (decode) and 16 (extraction); its record is the decode's up64 conv2
+K6_SHAPES = [(1, 20, 36, 48, 80), (8, 64, 64, 256, 384), (8, 64, 64, 512, 512),
+             (8, 128, 128, 512, 512), (8, 256, 256, 256, 256), (8, 512, 512, 128, 128),
+             (16, 512, 512, 128, 128)]
+K6_RECORD = (8, 512, 512, 128, 128)
+# K6's tolerance against its plain version (TF32 off), tightened from
+# test_styled_conv_pallas_fwd_bwd's 0.05 max(1, max|ref|) on the output and
+# 0.04 max(max|ref|, 0.01 largest gradient) on each gradient to what an H100
+# measured: the output to 0.0091 max(1, max|ref|) (a flipped bf16 rounding of
+# a), a mean of 6.6e-6; dx to 0.0031 (one bf16 step), dW to 2.2e-4, the rest
+# below 1e-5. The bounds leave 2-3x.
+K6_MAX, K6_MEAN, K6_BWD_REL = 0.02, 1e-4, 0.01
+K6_BWD_NAMES = ("dx", "dw", "dgain", "db", "dscale", "dshift")
 
 
 def card_peaks(name):
@@ -243,6 +270,150 @@ def tap_bwd_phase(tap_cuda, bw, flops, card):
     return record
 
 
+def styled_conv_inputs(g, b, h, w, cin, cout):
+    """Inputs of the fused StyledConv as the generator gives them: bf16
+    activations and noise, He-scaled float32 weights, nonzero gain and biases,
+    style scale and shift of the StyleMod linear's size."""
+    x = torch.randn((b, h, w, cin), generator=g, device="cuda").bfloat16()
+    wt = torch.randn((cout, cin, 3, 3), generator=g, device="cuda") * (2.0 / (9 * cin)) ** 0.5
+    noise = torch.randn((b, h, w, 1), generator=g, device="cuda").bfloat16()
+    gain = torch.full((1,), 0.3, device="cuda")
+    bt = torch.randn((cout,), generator=g, device="cuda") * 0.1
+    s1 = (torch.randn((b, cout), generator=g, device="cuda") * 0.3 + 1.0).bfloat16().float()
+    shift = torch.randn((b, cout), generator=g, device="cuda") * 0.3
+    return x, wt, noise, gain, bt, s1, shift
+
+
+def styled_conv_bound(shape, bw, flops, backward=False):
+    """(bound_ms, bound_by, GFLOP, MB): the products of the conv (forward) or
+    of dx and dW (backward) at the dense bf16 rate against the bytes the
+    function must move once (forward: x, noise and the weights in, out out;
+    backward: x, a, g and noise in, dx out), at the card's memory rate."""
+    b, h, w, cin, cout = shape
+    pix = b * h * w
+    ops = 2 * pix * 9 * cin * cout * (2 if backward else 1)
+    if backward:
+        nbytes = pix * (2 * cin + 2 * cout + 1) * 2 + 9 * cin * cout * 4
+    else:
+        nbytes = pix * (cin + cout + 1) * 2 + 9 * cin * cout * 2 + 4 * cout * (1 + 2 * b)
+    by = "bytes" if nbytes / bw >= ops / flops else "operations"
+    return max(nbytes / bw, ops / flops) * 1e3, by, ops / 1e9, nbytes / 1e6
+
+
+def composite_styled_conv(shape, gen):
+    """The port's unfused StyledConv (cuDNN conv and elementwise kernels) at
+    ``shape``, bf16, with pinned bf16 noise: the yardstick of the fused op."""
+    from ppst_tpu_torch.nn.layers import StyledConv, init_weights
+
+    b, h, w, cin, cout = shape
+    m = StyledConv(cin, cout, 3, style_dim=2048)
+    init_weights(m, torch.Generator().manual_seed(0))
+    m.cuda()
+    latent = torch.randn((b, 2048), generator=gen, device="cuda").bfloat16()
+    noise = torch.randn((b, h, w, 1), generator=gen, device="cuda").bfloat16()
+    x = torch.randn((b, h, w, cin), generator=gen, device="cuda").bfloat16()
+
+    def run():
+        with torch.no_grad():
+            return m(x, latent, noise)
+
+    return run
+
+
+def styled_conv_phase(sc, bw, flops, card):
+    """K6's forward against its plain version at the generator's 512px shapes
+    and an odd one; returns its record at the decode's largest shape."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    max_err, record = 0.0, None
+    for shape in K6_SHAPES:
+        args = styled_conv_inputs(g, *shape)
+        got = sc._forward(*args)[0]
+        torch.cuda.synchronize()
+        want = sc.styled_conv3x3_reference(*args)
+        err = (got.float() - want.float()).abs()
+        mx, mean = err.max().item(), err.mean().item()
+        tol = K6_MAX * max(1.0, want.float().abs().max().item())
+        print(f"[kernel] styled_conv3x3 {shape}: max_abs_err {mx} mean_abs_err {mean} "
+              f"(tolerance {tol} / {K6_MEAN})", flush=True)
+        if not (got.shape == want.shape and torch.isfinite(got.float()).all().item()
+                and mx <= tol and mean <= K6_MEAN):
+            raise AssertionError(f"styled_conv3x3 disagrees with its plain version at {shape}")
+        if not torch.equal(got, sc._forward(*args)[0]):
+            raise AssertionError(f"styled_conv3x3 is not deterministic at {shape}")
+        max_err = max(max_err, mx)
+        if shape[1] < 64:
+            continue
+        bound_ms, bound_by, gflop, mb = styled_conv_bound(shape, bw, flops)
+        ms, plain_ms = cuda_ms(lambda: sc._forward(*args), reps=10,
+                               other=lambda: sc.styled_conv3x3_reference(*args))
+        del got, want, err
+        composite_ms = cuda_ms(composite_styled_conv(shape, g), reps=10)
+        print(f"[kernel] styled_conv3x3 {shape}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"composite StyledConv {composite_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}: {gflop:.1f} GFLOP at {flops / 1e12} TFLOP/s, {mb:.1f} MB at "
+              f"{bw / 1e12} TB/s); {card}", flush=True)
+        if shape == K6_RECORD:
+            record = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                          composite_ms=composite_ms)
+    record["max_abs_err"] = max_err
+    return record
+
+
+def styled_conv_bwd_phase(sc, bw, flops, card):
+    """K6's backward against its plain version on the residuals K6's forward
+    gives, with dx, at the same shapes (and once without dx); returns its
+    record at the decode's largest shape."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    max_err, record = 0.0, None
+    for shape in K6_SHAPES + [K6_SHAPES[0] + ("no dx",)]:
+        need_dx = shape[-1] != "no dx"
+        shape = shape[:5]
+        x, wt, noise, gain, bt, s1, shift = styled_conv_inputs(g, *shape)
+        _, (a, mean, rstd) = sc._forward(x, wt, noise, gain, bt, s1, shift)
+        cot = torch.randn(a.shape, generator=g, device="cuda").bfloat16()
+        args = (x, wt, noise, a, mean, rstd, s1, cot, need_dx)
+        got = sc.styled_conv3x3_bwd(*args)
+        torch.cuda.synchronize()
+        want = sc.styled_conv3x3_bwd_reference(*args)
+        overall = max(v.abs().max().item() for v in want if v is not None)
+        rel = {}
+        for name, u, v in zip(K6_BWD_NAMES, got, want):
+            if v is None:
+                if u is not None:
+                    raise AssertionError("styled_conv3x3_bwd returned dx unasked")
+                continue
+            u, v = u.float(), v.float()
+            if not torch.isfinite(u).all().item() or u.shape != v.shape:
+                raise AssertionError(f"styled_conv3x3_bwd {name}: bad output at {shape}")
+            if name == "dw" and got[1].dtype != torch.float32:
+                raise AssertionError("styled_conv3x3_bwd: dW is not float32")
+            gap = (u - v).abs().max().item()
+            max_err = max(max_err, gap)
+            rel[name] = gap / max(v.abs().max().item(), 0.01 * overall)
+            if rel[name] > K6_BWD_REL:
+                raise AssertionError(f"styled_conv3x3_bwd {name} disagrees with its plain "
+                                     f"version at {shape}, dx={need_dx}: {rel[name]}")
+        print(f"[kernel] styled_conv3x3_bwd {shape} dx={need_dx}: max |error| / max(max |grad|, "
+              "0.01 largest) " + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+              + f" (tolerance {K6_BWD_REL})", flush=True)
+        again = sc.styled_conv3x3_bwd(*args)
+        if not all((u is None and v is None) or torch.equal(u, v) for u, v in zip(got, again)):
+            raise AssertionError(f"styled_conv3x3_bwd is not deterministic at {shape}")
+        del got, want, again
+        if shape[1] < 64 or not need_dx:
+            continue
+        bound_ms, bound_by, gflop, mb = styled_conv_bound(shape, bw, flops, backward=True)
+        ms, plain_ms = cuda_ms(lambda: sc.styled_conv3x3_bwd(*args), reps=10,
+                               other=lambda: sc.styled_conv3x3_bwd_reference(*args))
+        print(f"[kernel] styled_conv3x3_bwd {shape}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}: {gflop:.1f} GFLOP at {flops / 1e12} "
+              f"TFLOP/s, {mb:.1f} MB at {bw / 1e12} TB/s); {card}", flush=True)
+        if shape == K6_RECORD:
+            record = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    record["max_abs_err"] = max_err
+    return record
+
+
 def sdpa_backend(q, k, v, scale):
     """The backend PyTorch's scaled_dot_product_attention picks for these
     inputs."""
@@ -303,16 +474,39 @@ def corr_warp_phase(cw, bw, flops, card):
     return record
 
 
-def reset_launches(*kernels):
-    for k in kernels:
+def kernel_wrappers():
+    """Every kernel wrapper of the port, each with its launch count."""
+    from ppst_tpu_torch.ops import corr_warp_cuda, styled_conv_cuda, tap_cuda
+
+    return (tap_cuda.fused_tap_1x1, tap_cuda.fused_tap_1x1_bwd, corr_warp_cuda.corr_warp_blockwise,
+            styled_conv_cuda.styled_conv3x3, styled_conv_cuda.styled_conv3x3_bwd)
+
+
+def reset_launches():
+    for k in kernel_wrappers():
         k.launches = 0
 
 
-def check_no_backward(tap_cuda, path):
+def check_no_backward(path):
     """A serving path launches no backward kernel."""
-    if tap_cuda.fused_tap_1x1_bwd.launches:
-        raise AssertionError(f"{path} launched fused_tap_1x1_bwd "
-                             f"{tap_cuda.fused_tap_1x1_bwd.launches} times")
+    for k in kernel_wrappers():
+        if k.__name__.endswith("_bwd") and k.launches:
+            raise AssertionError(f"{path} launched {k.__name__} {k.launches} times")
+
+
+def nonzero_styled_conv_params(model, gains=True, seed=7):
+    """Seeded nonzero StyledConv biases (and noise gains), zero at init, so
+    that their handling by the fused and the unfused paths shows."""
+    from ppst_tpu_torch.nn.layers import StyledConv
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.G.modules():
+            if isinstance(m, StyledConv):
+                for p in (m.conv.bias, m.bias, m.activate.bias):
+                    p.copy_(torch.empty(p.shape).uniform_(-0.2, 0.2, generator=g))
+                if gains and m.noise is not None:
+                    m.noise.weight.copy_(torch.empty(1).uniform_(0.05, 0.2, generator=g))
 
 
 def small_reference_check(PPSTConfig, PPSTModel):
@@ -384,7 +578,7 @@ def path_phase(tap_cuda, cw, PPSTConfig, PPSTModel, card):
         torch.cuda.synchronize()
         return out
 
-    reset_launches(tap_cuda.fused_tap_1x1, cw.corr_warp_blockwise, tap_cuda.fused_tap_1x1_bwd)
+    reset_launches()
     out1 = run(content8[:1], style8[:1])  # warm-up
     lat = []
     for _ in range(10):
@@ -401,7 +595,7 @@ def path_phase(tap_cuda, cw, PPSTConfig, PPSTModel, card):
     launches = tap_cuda.fused_tap_1x1.launches
     if cw.corr_warp_blockwise.launches:
         raise AssertionError("the dense stylize path launched the blockwise kernel")
-    check_no_backward(tap_cuda, "stylize")
+    check_no_backward("stylize")
 
     for out, b in ((out1, 1), (out8, 8)):
         if out.shape != (b, 512, 512, 3) or not torch.isfinite(out).all().item():
@@ -429,7 +623,7 @@ def fused_path_phase(tap_cuda, cw, PPSTConfig, PPSTModel, card):
     gen = torch.Generator(device="cuda").manual_seed(0)
     content, style = (torch.rand((2, 1024, 1024, 3), generator=gen, device="cuda") * 2 - 1
                       ).bfloat16().chunk(2)
-    reset_launches(tap_cuda.fused_tap_1x1, cw.corr_warp_blockwise, tap_cuda.fused_tap_1x1_bwd)
+    reset_launches()
     out = model.stylize_fused(content, style, gen, smooth_target=True)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -442,7 +636,7 @@ def fused_path_phase(tap_cuda, cw, PPSTConfig, PPSTModel, card):
     calls = 11
     k1, k3 = tap_cuda.fused_tap_1x1.launches, cw.corr_warp_blockwise.launches
     peak = torch.cuda.max_memory_allocated() / 2**30
-    check_no_backward(tap_cuda, "stylize_fused")
+    check_no_backward("stylize_fused")
 
     if out.shape != (1, 1024, 1024, 3) or not torch.isfinite(out).all().item():
         raise AssertionError(f"stylize_fused: bad output {tuple(out.shape)}")
@@ -466,6 +660,106 @@ def fused_path_phase(tap_cuda, cw, PPSTConfig, PPSTModel, card):
         "fused_tap_launches": k1, "corr_warp_ms_per_call": k3_ms,
         "corr_warp_share_of_p50": k3_ms / p50, "card": card}), flush=True)
     return k3
+
+
+def styled_conv_path_phase(tap_cuda, cw, sc, PPSTConfig, PPSTModel, card):
+    """512px full-width bf16 stylize with the fused tap, the fused StyledConv
+    and the guided filter, batch 1 then batch 8 pairs; its output against the
+    unfused path's on the same weights with pinned bf16 noise; then one 1024px
+    ``stylize_fused`` call with the option on. Returns K6's launches in the
+    512px calls."""
+    import dataclasses
+
+    from ppst_tpu_torch.models.generator import make_fixed_noise
+    from ppst_tpu_torch.models.ppst import take_rows
+
+    cfg = PPSTConfig(crop_size=512, fused_tap=True, fused_styled_conv=True, dtype="bfloat16")
+    model = PPSTModel(cfg, device="cuda", seed=0)
+    nonzero_styled_conv_params(model)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    content8 = (torch.rand((8, 512, 512, 3), generator=gen, device="cuda") * 2 - 1).bfloat16()
+    style8 = content8.roll(1, dims=0)
+    calls = 0
+
+    def run(content, style):
+        nonlocal calls
+        calls += 1
+        out = model.stylize(content, style, gen, smooth_target=True)
+        torch.cuda.synchronize()
+        return out
+
+    reset_launches()
+    out1 = run(content8[:1], style8[:1])  # warm-up
+    lat = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        out1 = run(content8[:1], style8[:1])
+        lat.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.reset_peak_memory_stats()
+    out8 = run(content8, style8)  # warm-up
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out8 = run(content8, style8)
+    pairs_s = 8 * reps / (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    k1, k3, k6 = (tap_cuda.fused_tap_1x1.launches, cw.corr_warp_blockwise.launches,
+                  sc.styled_conv3x3.launches)
+    check_no_backward("stylize with the fused StyledConv")
+    for out, b in ((out1, 1), (out8, 8)):
+        if out.shape != (b, 512, 512, 3) or not torch.isfinite(out.float()).all().item():
+            raise AssertionError(f"fused StyledConv stylize batch {b}: bad output")
+    # two G passes a call (the batched extraction and the decode), 11 K6 each
+    if k6 != 22 * calls or k1 != calls or k3:
+        raise AssertionError(f"fused StyledConv stylize launched K6 {k6}, K1 {k1} and K3 {k3} "
+                             f"times in {calls} calls ({22 * calls}, {calls} and 0 expected)")
+
+    # against the unfused path: the same weights, pinned bf16 noise
+    unfused = PPSTModel(dataclasses.replace(cfg, fused_styled_conv=False), device="cuda", seed=0)
+    unfused.load_state_dict(model.state_dict())
+    c, s = content8[:2], style8[:2]
+    ext = [n.bfloat16() for n in make_fixed_noise(cfg, gen, 4, 512)]
+    dec = [n.bfloat16() for n in make_fixed_noise(cfg, gen, 2, 512)]
+
+    def pinned(m):
+        bank = m.grid_extract(torch.cat([c, s]), noises=ext)
+        return m.grid_pairs({k: take_rows(v, slice(None, 2)) for k, v in bank.items()},
+                            {k: take_rows(v, slice(2, None)) for k, v in bank.items()},
+                            [0, 1], [0, 1], smooth_target=c, noises=dec).float()
+
+    diff = (pinned(model) - pinned(unfused)).abs()
+    mx, mean = diff.max().item(), diff.mean().item()
+    print(f"[path] 512px stylize, fused StyledConv vs unfused, pinned bf16 noise: max_abs {mx} "
+          f"mean_abs {mean} (tolerance {FUSED_SC_MAX_ABS} / {FUSED_SC_MEAN_ABS})", flush=True)
+    if not (mx <= FUSED_SC_MAX_ABS and mean <= FUSED_SC_MEAN_ABS):
+        raise AssertionError("the fused StyledConv path disagrees with the unfused path")
+    del unfused, model
+
+    # 1024px: the up64 conv2 runs K6 at (2, 1024, 1024, 128) in the extraction
+    big = PPSTModel(dataclasses.replace(cfg, crop_size=1024), device="cuda", seed=0)
+    c1, s1 = (torch.rand((2, 1024, 1024, 3), generator=gen, device="cuda") * 2 - 1
+              ).bfloat16().chunk(2)
+    reset_launches()
+    t0 = time.perf_counter()
+    out = big.stylize_fused(c1, s1, gen, smooth_target=True)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    k6_1024 = sc.styled_conv3x3.launches
+    check_no_backward("1024px stylize_fused with the fused StyledConv")
+    if (out.shape != (1, 1024, 1024, 3) or not torch.isfinite(out.float()).all().item()
+            or k6_1024 != 22 or cw.corr_warp_blockwise.launches != 4):
+        raise AssertionError(f"1024px stylize_fused with the fused StyledConv: output "
+                             f"{tuple(out.shape)}, K6 {k6_1024} launches (22 expected)")
+    print(json.dumps({
+        "path": "stylize", "crop": 512, "dtype": "bfloat16", "fused_tap": True,
+        "fused_styled_conv": True, "smooth_target": True,
+        "batch1_latency_ms_p50": statistics.median(lat), "batch1_latency_ms": lat,
+        "batch8_pairs_per_s": pairs_s, "batch8_peak_mem_gib": peak, "stylize_calls": calls,
+        "styled_conv_launches": k6, "fused_tap_launches": k1,
+        "fused_vs_unfused_max_abs": mx, "fused_vs_unfused_mean_abs": mean,
+        "stylize_fused_1024_first_call_ms": first_ms, "stylize_fused_1024_styled_conv_launches":
+            k6_1024, "card": card}), flush=True)
+    return k6
 
 
 def grid_phase(tap_cuda, cw, PPSTConfig, PPSTModel, card):
@@ -507,12 +801,12 @@ def grid_phase(tap_cuda, cw, PPSTConfig, PPSTModel, card):
         out = pairs(extract(), blockwise)  # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        reset_launches(tap_cuda.fused_tap_1x1, cw.corr_warp_blockwise, tap_cuda.fused_tap_1x1_bwd)
+        reset_launches()
         t0 = time.perf_counter()
         for _ in range(iters):
             out = pairs(extract(), blockwise)
         torch.cuda.synchronize()
-        check_no_backward(tap_cuda, "grid serving")
+        check_no_backward("grid serving")
         pairs_s = n_pairs * iters / (time.perf_counter() - t0)
         if not torch.isfinite(out.float()).all().item() or out.float().std().item() < 1e-3:
             raise AssertionError("grid output is not finite or constant")
@@ -562,25 +856,27 @@ def synthetic_batch(gen, b, crop):
     return img, F.one_hot(region, 3).float()
 
 
-def train_phase(tap_cuda, cw, PPSTConfig, PPSTModel, card):
+def train_phase(tap_cuda, cw, sc, PPSTConfig, PPSTModel, card, fused_styled_conv=False,
+                rounds=4):
     """512px full-width bf16 training with the fused tap and the default
     remat (every G pass recomputed in the backward), batch 4: one warm-up
-    round of D, G and D+R1 steps, then three timed rounds. Returns K2's
-    launches."""
+    round of D, G and D+R1 steps, then ``rounds - 1`` timed rounds; with
+    ``fused_styled_conv`` the generator's non-upsampled StyledConvs run K6.
+    Returns the launches of K2, K6 and K6's backward."""
     from ppst_tpu_torch.train.steps import TrainSteps
 
     batch = 4
-    model = PPSTModel(PPSTConfig(crop_size=512, dtype="bfloat16", fused_tap=True),
-                      device="cuda", seed=0)
+    model = PPSTModel(PPSTConfig(crop_size=512, dtype="bfloat16", fused_tap=True,
+                                 fused_styled_conv=fused_styled_conv), device="cuda", seed=0)
     steps = TrainSteps(model)
     gen = torch.Generator(device="cuda").manual_seed(0)
     real, mask = synthetic_batch(gen, batch, 512)
     before = {k: v.clone() for k, v in model.state_dict().items()}
     kinds = {"d": steps.d_step, "g": steps.g_step, "r1": steps.d_step_r1}
     times, counts, losses = {k: [] for k in kinds}, dict.fromkeys(kinds, 0), {}
-    reset_launches(tap_cuda.fused_tap_1x1, cw.corr_warp_blockwise, tap_cuda.fused_tap_1x1_bwd)
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    for _ in range(4):
+    for _ in range(rounds):
         for kind, step in kinds.items():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -592,6 +888,7 @@ def train_phase(tap_cuda, cw, PPSTConfig, PPSTModel, card):
     peak = torch.cuda.max_memory_allocated() / 2**30
     k1, k2, k3 = (tap_cuda.fused_tap_1x1.launches, tap_cuda.fused_tap_1x1_bwd.launches,
                   cw.corr_warp_blockwise.launches)
+    k6, k6b = sc.styled_conv3x3.launches, sc.styled_conv3x3_bwd.launches
     t = {k: statistics.median(v[1:]) for k, v in times.items()}
     img_s = 2 * batch / (t["d"] + t["g"] + (t["r1"] - t["d"]) / 16) * 1e3
 
@@ -609,6 +906,15 @@ def train_phase(tap_cuda, cw, PPSTConfig, PPSTModel, card):
     if k2 != counts["g"] or k1 != want_k1 or k3:
         raise AssertionError(f"training launched K1 {k1}, K2 {k2}, K3 {k3} times in "
                              f"{counts} steps ({want_k1}, {counts['g']} and 0 expected)")
+    # K6: 11 per G pass. A D or D+R1 step makes two passes without grad; a G
+    # step three (g_ext, g_mix, g_cyc), each once more in its recompute. K6's
+    # backward: 11 for each G pass whose output carries gradient to G's trunk
+    # (g_mix and g_cyc; the feature taps read a detached trunk).
+    want_k6 = 22 * (counts["d"] + counts["r1"]) + 66 * counts["g"] if fused_styled_conv else 0
+    want_k6b = 22 * counts["g"] if fused_styled_conv else 0
+    if k6 != want_k6 or k6b != want_k6b:
+        raise AssertionError(f"training launched K6 {k6} and K6's backward {k6b} times in "
+                             f"{counts} steps ({want_k6} and {want_k6b} expected)")
     # where a G step's time goes: one more step under torch.profiler
     prof_acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=prof_acts) as prof:
@@ -627,14 +933,16 @@ def train_phase(tap_cuda, cw, PPSTConfig, PPSTModel, card):
     busy = sum(device_us(e) for e in events) / 1e3
     profile = {"wall_ms": prof_wall, "device_busy_ms": busy, "busy_share": busy / prof_wall,
                "top_kernels_ms": [[e.key[:80], device_us(e) / 1e3, e.count] for e in events[:12]]}
-    print(json.dumps({"g_step_profile": profile, "card": card}), flush=True)
+    print(json.dumps({"g_step_profile": profile, "fused_styled_conv": fused_styled_conv,
+                      "card": card}), flush=True)
     print(json.dumps({
         "path": "train", "crop": 512, "batch": batch, "dtype": "bfloat16", "fused_tap": True,
-        "remat_nets": model.cfg.remat_nets, "d_step_ms": t["d"], "g_step_ms": t["g"],
-        "d_r1_step_ms": t["r1"], "step_ms": times, "train_img_per_s": img_s,
-        "peak_mem_gib": peak, "losses": losses, "steps": counts, "fused_tap_launches": k1,
-        "fused_tap_bwd_launches": k2, "corr_warp_launches": k3, "card": card}), flush=True)
-    return k2
+        "fused_styled_conv": fused_styled_conv, "remat_nets": model.cfg.remat_nets,
+        "d_step_ms": t["d"], "g_step_ms": t["g"], "d_r1_step_ms": t["r1"], "step_ms": times,
+        "train_img_per_s": img_s, "peak_mem_gib": peak, "losses": losses, "steps": counts,
+        "fused_tap_launches": k1, "fused_tap_bwd_launches": k2, "corr_warp_launches": k3,
+        "styled_conv_launches": k6, "styled_conv_bwd_launches": k6b, "card": card}), flush=True)
+    return k2, k6, k6b
 
 
 def train_reference_check(PPSTConfig, PPSTModel):
@@ -689,6 +997,85 @@ def train_reference_check(PPSTConfig, PPSTModel):
         report[kind] = {"loss_max_rel_err": loss_err, "grad_max_rel_err": worst_rel,
                         "grad_min_cosine": worst_cos, "losses": sorted(lc)}
     print(json.dumps({"train_reference_crop64_f32_card_vs_cpu": report}), flush=True)
+
+
+def fused_reference_check(PPSTConfig, PPSTModel):
+    """The narrow model in bf16 with the fused StyledConv on the card (K6)
+    against the same code on the CPU (K6's plain versions, which the tests hold
+    against ppst_tpu): the generator's outputs with pinned bf16 noise and
+    nonzero noise gains and biases, and one G step's losses and gradients
+    (zero noise gains there: the two devices draw different noise). bf16
+    rounds at other places on the two devices, so each is read against the
+    CPU's float32 run: the card's bf16 distance from it within 1.5x the CPU's
+    bf16 distance; the G step's per-network gradient cosine with the CPU's
+    bf16 step at least 0.75 and with the float32 step no more than 0.05
+    below the CPU bf16 step's. (One bf16 G step at these widths is far from
+    float32 on any device: the CPU's bf16 gradients have cosines of 0.78
+    (E1) to 0.90 (G) with its float32 ones. Measured on an H100: the card's
+    bf16 outputs 2.18%, 1.72%, 1.87% of the RMS from float32 against the
+    CPU's 2.18%, 1.71%, 1.88%; gradient cosines with the CPU's bf16 step
+    0.83 (E1) to 0.95 (E2), and with the float32 step 0.02-0.06 above the
+    CPU bf16 step's.)"""
+    from ppst_tpu_torch.models.generator import make_fixed_noise
+
+    # the narrow feature tap has 8 channels, which K1 does not take
+    kw = dict(NARROW, netD_scale_capacity=0.125, dtype="bfloat16", fused_styled_conv=True)
+    rng = np.random.default_rng(0)
+    sp = torch.from_numpy(rng.standard_normal((2, 8, 8, 16)).astype(np.float32))
+    gl = [torch.from_numpy(rng.standard_normal((2, 64)).astype(np.float32)) for _ in range(4)]
+    noises = make_fixed_noise(PPSTConfig(**kw), torch.Generator().manual_seed(5), 2, 64)
+    real = torch.from_numpy(rng.uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32))
+    region = np.kron(rng.integers(0, 3, (2, 4, 4)), np.ones((1, 16, 16), np.int64))
+    mask = torch.from_numpy(np.stack([region == i for i in range(3)], -1).astype(np.float32))
+    runs = {}
+    for run, dev, dtype in (("cpu32", "cpu", torch.float32), ("cpu16", "cpu", torch.bfloat16),
+                            ("card16", "cuda", torch.bfloat16)):
+        model = PPSTModel(PPSTConfig(**kw), device=dev, seed=0)
+        nonzero_styled_conv_params(model)
+        with torch.inference_mode():
+            outs = model.G(sp.to(dev, dtype), [g.to(dev, dtype) for g in gl],
+                           extract_features=True, noises=[n.to(dev, dtype) for n in noises])
+        model = PPSTModel(PPSTConfig(**kw), device=dev, seed=0)
+        nonzero_styled_conv_params(model, gains=False)
+        losses, _, _ = model.generator_losses(real.to(dev, dtype), mask.to(dev, dtype),
+                                              torch.Generator(device=dev).manual_seed(0))
+        sum(losses.values()).backward(
+            inputs=[p for n in ("G", "E1", "E2") for p in getattr(model, n).parameters()])
+        grads = {k: p.grad.double().cpu().ravel() for k, p in model.named_parameters()
+                 if p.grad is not None and k.split(".")[0] in ("G", "E1", "E2")}
+        runs[run] = ([o.float().cpu() for o in outs], {k: v.item() for k, v in losses.items()},
+                     grads)
+    (o32, l32, g32), (o16, l16, g16), (oc, lc, gc) = (runs[k] for k in ("cpu32", "cpu16",
+                                                                         "card16"))
+    report = {}
+    for name, a, b, r in zip(("rgb", "feat", "feat1"), oc, o16, o32):
+        rms = r.pow(2).mean().sqrt().item()
+        card, cpu = (a - r).abs().mean().item() / rms, (b - r).abs().mean().item() / rms
+        report[f"g_{name}_bf16_vs_f32_card_cpu"] = [card, cpu]
+        report[f"g_{name}_card_vs_cpu_bf16"] = (a - b).abs().mean().item() / rms
+        if not (torch.isfinite(a).all().item() and card <= 1.5 * cpu):
+            raise AssertionError(f"the fused generator's {name} on the card is {card} of the RMS "
+                                 f"from float32, the CPU's bf16 {cpu}")
+    loss_err = max(abs(lc[k] - v) / max(abs(v), 1e-2) for k, v in l16.items())
+    if set(lc) != set(l16) or not all(np.isfinite(v) for v in lc.values()) or loss_err > 0.03:
+        raise AssertionError(f"the fused bf16 G step's losses on the card: {lc} against {l16}")
+    report["g_step_loss_max_rel_err"] = loss_err
+
+    def cos(a, b):
+        return (a @ b).item() / (a.norm() * b.norm()).item()
+
+    for net in ("G", "E1", "E2"):
+        scale = max(v.abs().max().item() for k, v in g32.items() if k.startswith(net + "."))
+        keep = [k for k, v in g32.items() if k.startswith(net + ".") and "noise" not in k
+                and v.abs().max().item() > 1e-3 * scale]
+        c, b, r = (torch.cat([g[k] for k in keep]) for g in (gc, g16, g32))
+        report[f"g_step_{net}_cos_card_cpu_bf16"] = cos(c, b)
+        report[f"g_step_{net}_cos_f32_card_cpu"] = [cos(c, r), cos(b, r)]
+        if not (torch.isfinite(c).all().item() and cos(c, b) >= 0.75
+                and cos(c, r) >= cos(b, r) - 0.05):
+            raise AssertionError(f"the fused bf16 G step's {net} gradients on the card: {report}")
+    print(json.dumps({"fused_styled_conv_reference_crop64_bf16_card_vs_cpu": report}),
+          flush=True)
 
 
 def train_cli_phase():
@@ -768,6 +1155,18 @@ def cli_phase():
             raise AssertionError(f"CLI wrote an image of shape {shape}")
         print(f"[cli] python -m ppst_tpu_torch.test wrote {shape} in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        subprocess.run(
+            [sys.executable, "-m", "ppst_tpu_torch.test", *common, "--fused_styled_conv", "true",
+             "--evaluation_metrics", "simple_swapping", "--input_structure_image", paths[0],
+             "--input_texture_image", paths[1], "--result_dir", os.path.join(tmp, "fused")],
+            cwd=ROOT, check=True, timeout=600)
+        shape = np.asarray(Image.open(os.path.join(
+            tmp, "fused", "ppst", "results", "simpleswapping", "content_style_1.00.png"))).shape
+        if shape != (512, 512, 3):
+            raise AssertionError(f"CLI with --fused_styled_conv wrote an image of shape {shape}")
+        print(f"[cli] python -m ppst_tpu_torch.test --fused_styled_conv true wrote {shape} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
 
         data = os.path.join(tmp, "grid")
         for sub in ("content", "style"):
@@ -794,20 +1193,22 @@ def cli_phase():
 
 def build_phase():
     """Build every kernel source at once, one nvcc each, and load them."""
-    from ppst_tpu_torch.ops import _nvcc, corr_warp_cuda, tap_cuda
+    from ppst_tpu_torch.ops import _nvcc, corr_warp_cuda, styled_conv_cuda, tap_cuda
 
     def build(name):
         t0 = time.perf_counter()
         _nvcc.build(_nvcc.PKG / "csrc" / f"{name}.cu")
         return time.perf_counter() - t0
 
-    names = ("tap", "tap_bwd", "corr_warp")
+    names = ("tap", "tap_bwd", "corr_warp", "styled_conv", "styled_conv_bwd")
     with ThreadPoolExecutor(len(names)) as pool:
         for name, secs in zip(names, pool.map(build, names)):
             print(f"[build] csrc/{name}.cu built in {secs:.1f} s", flush=True)
     tap_cuda._lib()
     tap_cuda._bwd_lib()
     corr_warp_cuda._lib()
+    styled_conv_cuda._lib()
+    styled_conv_cuda._bwd_lib()
 
 
 def phase(name, fn, *args):
@@ -823,7 +1224,7 @@ def main():
         return 1
     from ppst_tpu_torch.models.config import PPSTConfig
     from ppst_tpu_torch.models.ppst import PPSTModel
-    from ppst_tpu_torch.ops import corr_warp_cuda, tap_cuda
+    from ppst_tpu_torch.ops import corr_warp_cuda, styled_conv_cuda, tap_cuda
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -837,15 +1238,25 @@ def main():
     k1 = phase("kernel fused_tap_1x1", kernel_phase, tap_cuda, bw, flops, card)
     k2 = phase("kernel fused_tap_1x1_bwd", tap_bwd_phase, tap_cuda, bw, flops, card)
     k3 = phase("kernel corr_warp_blockwise", corr_warp_phase, corr_warp_cuda, bw, flops, card)
+    k6 = phase("kernel styled_conv3x3", styled_conv_phase, styled_conv_cuda, bw, flops, card)
+    k6b = phase("kernel styled_conv3x3_bwd", styled_conv_bwd_phase, styled_conv_cuda, bw, flops,
+                card)
     k1_launches = phase("path stylize 512px", path_phase, tap_cuda, corr_warp_cuda,
                         PPSTConfig, PPSTModel, card)
     k3_launches = phase("path stylize_fused 1024px", fused_path_phase, tap_cuda, corr_warp_cuda,
                         PPSTConfig, PPSTModel, card)
+    k6_launches = phase("path stylize 512px fused StyledConv", styled_conv_path_phase, tap_cuda,
+                        corr_warp_cuda, styled_conv_cuda, PPSTConfig, PPSTModel, card)
     phase("grid", grid_phase, tap_cuda, corr_warp_cuda, PPSTConfig, PPSTModel, card)
-    k2_launches = phase("train 512px", train_phase, tap_cuda, corr_warp_cuda, PPSTConfig,
-                        PPSTModel, card)
+    k2_launches, _, _ = phase("train 512px", train_phase, tap_cuda, corr_warp_cuda,
+                              styled_conv_cuda, PPSTConfig, PPSTModel, card)
+    torch.cuda.empty_cache()
+    _, _, k6b_launches = phase("train 512px fused StyledConv", train_phase, tap_cuda,
+                               corr_warp_cuda, styled_conv_cuda, PPSTConfig, PPSTModel, card,
+                               True)
     phase("reference", small_reference_check, PPSTConfig, PPSTModel)
     phase("reference train", train_reference_check, PPSTConfig, PPSTModel)
+    phase("reference fused StyledConv", fused_reference_check, PPSTConfig, PPSTModel)
     phase("cli", cli_phase)
     phase("cli train", train_cli_phase)
 
@@ -865,6 +1276,15 @@ def main():
          "max_abs_err": k3["max_abs_err"], "ms": k3["ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
          "library_ms": k3["library_ms"]},
+        {"name": "styled_conv3x3", "route": "cuda", "source": "ppst_tpu_torch/csrc/styled_conv.cu",
+         "replaces": "ppst_tpu/ops/styled_conv_pallas.py:146", "launches": k6_launches,
+         "max_abs_err": k6["max_abs_err"], "ms": k6["ms"], "plain_ms": k6["plain_ms"],
+         "bound_ms": k6["bound_ms"], "bound_by": k6["bound_by"], "library_ms": None},
+        {"name": "styled_conv3x3_bwd", "route": "cuda",
+         "source": "ppst_tpu_torch/csrc/styled_conv_bwd.cu",
+         "replaces": "ppst_tpu/ops/styled_conv_pallas.py:304", "launches": k6b_launches,
+         "max_abs_err": k6b["max_abs_err"], "ms": k6b["ms"], "plain_ms": k6b["plain_ms"],
+         "bound_ms": k6b["bound_ms"], "bound_by": k6b["bound_by"], "library_ms": None},
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

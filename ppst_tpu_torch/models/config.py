@@ -86,7 +86,8 @@ class PPSTConfig:
     # route the generator's 1x1 feature tap through the fused tap kernel
     # (ops.tap_cuda) when the compute dtype is bfloat16
     fused_tap: bool = False
-    # fused StyledConv kernel; not ported yet, the generator refuses it
+    # route the generator's non-upsampled 3x3 StyledConvs through the fused
+    # StyledConv kernel (ops.styled_conv_cuda) when the compute dtype is bfloat16
     fused_styled_conv: bool = False
 
     def __post_init__(self):

@@ -8,6 +8,9 @@ models/networks/generator.py:104-281).
   encoder downsampling -> ToRGB. Head blocks use global_codes[-1],
   upsampling block j uses global_codes[-2-j], ToRGB global_codes[0]; all
   codes are normalized on entry.
+* ``cfg.fused_styled_conv``: in bfloat16 the non-upsampled 3x3 StyledConvs
+  (both of each head block, conv2 of each upsampling block) run the fused
+  chain of ``ops.styled_conv_cuda``.
 * ``extract_features``: taps of the detached trunk at each resolution
   through small conv stacks, fused by ``layert`` (-> ``feat`` at structure
   resolution) and ``layert1`` (-> ``feat1`` at 4x that), feeding
@@ -61,10 +64,10 @@ class GeneratorModulation(nn.Module):
 class ResolutionPreservingResnetBlock(nn.Module):
     """(skip + styledconv x2) / sqrt(2) (reference generator.py:47-60)."""
 
-    def __init__(self, in_ch, out_ch, style_dim):
+    def __init__(self, in_ch, out_ch, style_dim, fused=False):
         super().__init__()
-        self.conv1 = StyledConv(in_ch, out_ch, 3, style_dim)
-        self.conv2 = StyledConv(out_ch, out_ch, 3, style_dim)
+        self.conv1 = StyledConv(in_ch, out_ch, 3, style_dim, fused=fused)
+        self.conv2 = StyledConv(out_ch, out_ch, 3, style_dim, fused=fused)
         self.skip = (ConvLayer(in_ch, out_ch, 1, activate=False, bias=False)
                      if in_ch != out_ch else None)
 
@@ -77,13 +80,15 @@ class ResolutionPreservingResnetBlock(nn.Module):
 
 class UpsamplingResnetBlock(nn.Module):
     """Upsampling styled resblock with a bilinear skip
-    (reference generator.py:63-77)."""
+    (reference generator.py:63-77). ``fused`` reaches conv2 only: the
+    upsampling conv1 always runs the composite, as in the JAX package."""
 
-    def __init__(self, in_ch, out_ch, style_dim, use_noise=False):
+    def __init__(self, in_ch, out_ch, style_dim, use_noise=False, fused=False):
         super().__init__()
         self.conv1 = StyledConv(in_ch, out_ch, 3, style_dim, upsample=True,
                                 use_noise=use_noise)
-        self.conv2 = StyledConv(out_ch, out_ch, 3, style_dim, use_noise=use_noise)
+        self.conv2 = StyledConv(out_ch, out_ch, 3, style_dim, use_noise=use_noise,
+                                fused=fused)
         self.skip = (ConvLayer(in_ch, out_ch, 1, activate=True, bias=True)
                      if in_ch != out_ch else None)
 
@@ -147,11 +152,8 @@ class _FeatureTap(nn.Module):
 class Generator(nn.Module):
     def __init__(self, cfg: PPSTConfig):
         super().__init__()
-        if cfg.fused_styled_conv:
-            raise NotImplementedError(
-                "fused_styled_conv needs the fused StyledConv kernel, which is not "
-                "ported yet")
         self.cfg = cfg
+        fused = cfg.fused_styled_conv
         sd, n_up = cfg.style_dim, cfg.netE_num_downsampling_sp
         self.SpatialCodeModulation = GeneratorModulation(sd, cfg.spatial_code_ch)
         ch = cfg.spatial_code_ch
@@ -159,13 +161,13 @@ class Generator(nn.Module):
             out_ch = max(cfg.spatial_code_ch,
                          round((i + 1) / cfg.netG_num_base_resnet_layers * cfg.nf_g(0)))
             self.add_module(f"HeadResnetBlock{i}",
-                            ResolutionPreservingResnetBlock(ch, out_ch, sd))
+                            ResolutionPreservingResnetBlock(ch, out_ch, sd, fused=fused))
             ch = out_ch
         fc = cfg.netG_resnet_ch  # reference feature_channel (generator.py:226)
         self.add_module("layer32", _FeatureTap(ch, feature_ch=fc))
         for j in range(n_up):
             self.add_module(f"UpsamplingResBlock{2 ** (4 + j)}", UpsamplingResnetBlock(
-                ch, cfg.nf_g(j + 1), sd, use_noise=cfg.netG_use_noise))
+                ch, cfg.nf_g(j + 1), sd, use_noise=cfg.netG_use_noise, fused=fused))
             ch = cfg.nf_g(j + 1)
             self.add_module(f"layer{2 ** (6 + j)}", _FeatureTap(
                 ch, conv1x1=(j == n_up - 1), feature_ch=fc, fused=cfg.fused_tap))

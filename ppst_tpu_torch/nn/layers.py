@@ -22,6 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ppst_tpu_torch.ops.fused_act import fused_leaky_relu, scaled_leaky_relu
+from ppst_tpu_torch.ops.styled_conv_cuda import styled_conv3x3
 from ppst_tpu_torch.ops.upfirdn2d import blur as blur_op
 from ppst_tpu_torch.ops.upfirdn2d import reflect_pad
 
@@ -284,18 +285,42 @@ class NoiseInjection(_Init):
 class StyledConv(nn.Module):
     """EqualizedConv2d -> noise -> bias -> fused lrelu -> epilogue (reference
     stylegan2_layers.py:439-475): activation-space modulation with two
-    learned biases, StyledConv's own and the activation's."""
+    learned biases, StyledConv's own and the activation's.
+
+    ``fused``: a non-upsampled 3x3 StyledConv in bfloat16 runs the whole chain
+    as one fused op (``ops.styled_conv_cuda.styled_conv3x3``): the kernels on
+    the card, their plain versions on the CPU. Other configurations run the
+    composite, as in the JAX package. Same parameters; pinned noise is cast to
+    bfloat16 there, so float32 noise does not promote the fused chain."""
 
     def __init__(self, in_ch, out_ch, kernel_size, style_dim, upsample=False,
-                 use_noise=True):
+                 use_noise=True, fused=False):
         super().__init__()
+        self.fused = fused and not upsample and kernel_size == 3
         self.conv = EqualizedConv2d(in_ch, out_ch, kernel_size, upscale=upsample)
         self.noise = NoiseInjection() if use_noise else None
         self.bias = nn.Parameter(torch.zeros(1, out_ch, 1, 1))
         self.activate = FusedLeakyReLU(out_ch)
         self.epi1 = LayerEpilogue(out_ch, style_dim)
 
+    def _fused(self, x, style, noise, generator):
+        b, h, w, _ = x.shape
+        if self.noise is not None:
+            gain = self.noise.weight
+            if noise is None:
+                noise = torch.randn((b, h, w, 1), generator=generator, device=x.device,
+                                    dtype=x.dtype)
+        else:
+            gain = torch.zeros(1, device=x.device)
+            noise = torch.zeros((b, h, w, 1), device=x.device, dtype=x.dtype)
+        s = self.epi1.style_mod.lin(style)
+        c = self.epi1.style_mod.channels
+        b_total = self.conv.bias + self.bias.reshape(-1) + self.activate.bias
+        return styled_conv3x3(x, self.conv.weight, noise, gain, b_total, s[:, :c], s[:, c:])
+
     def forward(self, x, style, noise=None, generator=None):
+        if self.fused and x.dtype == torch.bfloat16:
+            return self._fused(x, style, noise, generator)
         y = self.conv(x)
         if self.noise is not None:
             y = self.noise(y, noise, generator)

@@ -2,8 +2,8 @@
 
 Each source is compiled with ``nvcc`` for sm_90a into a shared library with a
 plain C interface, at first use, into ``ppst_tpu_torch/_build/`` (listed in
-``.gitignore``), keyed by a hash of the source and the flags. The wrappers
-bind it through ``ctypes``.
+``.gitignore``), keyed by a hash of the source, the ``*.cuh`` headers beside
+it and the flags. The wrappers bind it through ``ctypes``.
 """
 
 from __future__ import annotations
@@ -30,8 +30,9 @@ def nvcc() -> str:
 
 def build(src: Path) -> Path:
     """Compile ``src`` into ``_build/<stem>_<hash>.so`` unless that exists,
-    and return the library's path."""
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    and return the library's path. The hash covers the headers beside it."""
+    headers = b"".join(h.read_bytes() for h in sorted(src.parent.glob("*.cuh")))
+    digest = hashlib.sha1(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()
     lib = BUILD / f"{src.stem}_{digest[:16]}.so"
     if not lib.exists():
         BUILD.mkdir(parents=True, exist_ok=True)

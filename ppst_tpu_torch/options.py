@@ -1,7 +1,8 @@
 """CLI pieces shared by ``python -m ppst_tpu_torch.test`` and
 ``python -m ppst_tpu_torch.train``: the reference's boolean parsing and the
 network-shape flags (ppst_tpu/options/flags.py's names and defaults), which
-a checkpoint's reader must repeat from its training."""
+a checkpoint's reader must repeat from its training, and ``--fused_styled_conv``
+(a base option of ppst_tpu/options, shared by both CLIs)."""
 
 from __future__ import annotations
 
@@ -29,4 +30,7 @@ def add_network_flags(parser):
         a(f"--{name}", type=float, default=2.0)
     a("--netG_use_noise", type=str2bool, default=True)
     a("--use_antialias", type=str2bool, default=True)
+    a("--fused_styled_conv", type=str2bool, default=False,
+      help="fused StyledConv kernel for the generator's non-upsampled 3x3 convs "
+           "(bf16; forward and backward)")
     return parser

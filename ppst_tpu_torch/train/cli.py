@@ -60,7 +60,6 @@ def build_parser():
     a("--remat_taps", type=str2bool, default=False)
     a("--remat_blocks", type=str2bool, default=False)
     a("--fused_tap", type=str2bool, default=False)
-    a("--fused_styled_conv", type=str2bool, default=False)
     a("--debug_nan", type=str2bool, default=False)
     a("--continue_train", type=str2bool, default=False)
     a("--pretrained_name", type=str, default=None)
