@@ -3,9 +3,11 @@
 A copy of ``ppst_tpu.models.config.PPSTConfig``: the same fields, the same
 defaults, so one configuration describes both packages. Field names mirror
 the reference CLI flags. ``remat``/``remat_nets`` select the training
-passes that ``torch.utils.checkpoint`` recomputes. The memory strategies
-that are not ported (``remat_save_kernels``, ``remat_taps``,
-``remat_blocks``, ``unbatch_passes``, ``corr_blockwise``) raise when set.
+passes that ``torch.utils.checkpoint`` recomputes; ``remat_taps`` and
+``remat_blocks`` recompute G's feature taps and resblocks one at a time,
+``unbatch_passes`` splits the D step's passes, ``corr_blockwise`` trains
+through the blockwise correspondence (the 1024px training mode). The one
+memory strategy that is not ported, ``remat_save_kernels``, raises when set.
 """
 
 from __future__ import annotations
@@ -72,11 +74,15 @@ class PPSTConfig:
     # "all", or a comma list of call-site prefixes ("g" = every G pass)
     remat: bool = True
     remat_nets: str = "g"
-    # not ported: setting any of these raises
+    # not ported: a jax.checkpoint save policy; setting it raises
     remat_save_kernels: bool = False
+    # recompute each feature tap / fuse block, each G resblock
     remat_taps: bool = False
     remat_blocks: bool = False
+    # D step: separate G passes for mix and rec, one D pass per part
     unbatch_passes: bool = False
+    # training correspondences as (q, k) descriptors through
+    # ops.corr_blockwise.corr_warp_scan, in row blocks of corr_block
     corr_blockwise: bool = False
     corr_block: int = 512
 
@@ -91,10 +97,8 @@ class PPSTConfig:
     fused_styled_conv: bool = False
 
     def __post_init__(self):
-        unported = [f for f in ("remat_save_kernels", "remat_taps", "remat_blocks",
-                                "unbatch_passes", "corr_blockwise") if getattr(self, f)]
-        if unported:
-            raise NotImplementedError(f"PPSTConfig: {', '.join(unported)} not ported yet")
+        if self.remat_save_kernels:
+            raise NotImplementedError("PPSTConfig: remat_save_kernels not ported yet")
 
     @classmethod
     def from_options(cls, opt) -> "PPSTConfig":

@@ -14,13 +14,15 @@ features, and the warped features under the batch-swapped mask, for the
 RSCL loss.
 
 Warp scale factors follow the actual correspondence grid (sqrt(L)), as in
-the JAX package. ``corr_qk`` warps from normalized descriptors through the
-blockwise kernel (``ops.corr_warp_cuda``) instead of a dense matrix. The
-training route of ``corr_qk`` (``cfg.corr_blockwise``) is not ported yet.
+the JAX package. ``corr_qk`` warps from normalized descriptors without a
+dense matrix: through the blockwise kernel K3 (``ops.corr_warp_cuda``), or
+with ``cfg.corr_blockwise`` through the differentiable checkpointed scan
+(``ops.corr_blockwise.corr_warp_scan``, the training route).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
@@ -30,6 +32,7 @@ import torch.nn.functional as F
 from ppst_tpu_torch.models.config import PPSTConfig
 from ppst_tpu_torch.nn.layers import ConvLayer, ResBlock, TorchConv2d, TorchLinear
 from ppst_tpu_torch.ops.corr import adaptive_avg_pool, resize_bilinear, warp, warp_resize
+from ppst_tpu_torch.ops.corr_blockwise import corr_warp_scan
 from ppst_tpu_torch.ops.corr_warp_cuda import corr_warp_blockwise
 
 
@@ -88,11 +91,12 @@ def _warp_features(x, corr, out_hw=None, fast_pool=False):
     return warp(x, corr, out_hw=out_hw)
 
 
-def _warp_features_qk(x, q_desc, k_desc, out_hw=None, fast_pool=False):
+def _warp_features_qk(x, q_desc, k_desc, out_hw=None, fast_pool=False,
+                      warp_fn=corr_warp_blockwise):
     """Like ``_warp_features``, from normalized descriptors q (B, Lq, C) and
-    k (B, Lk, C) through the blockwise kernel, never holding the Lq x Lk
-    matrix: pool by s = sqrt(h*w/Lk), warp, and resize back unless
-    ``fast_pool``."""
+    k (B, Lk, C) through ``warp_fn`` (the blockwise kernel, or the training
+    scan), never holding the Lq x Lk matrix: pool by s = sqrt(h*w/Lk), warp,
+    and resize back unless ``fast_pool``."""
     b, h, w, c = x.shape
     lk, lq = k_desc.shape[1], q_desc.shape[1]
     if out_hw is None:
@@ -100,7 +104,7 @@ def _warp_features_qk(x, q_desc, k_desc, out_hw=None, fast_pool=False):
         out_hw = (g, g)
     s = int(round((h * w / lk) ** 0.5))
     pooled = adaptive_avg_pool(x, (h // s, w // s)) if s > 1 else x
-    warped = corr_warp_blockwise(q_desc, k_desc, pooled.reshape(b, lk, c))
+    warped = warp_fn(q_desc, k_desc, pooled.reshape(b, lk, c))
     warped = warped.reshape(b, out_hw[0], out_hw[1], c)
     if s > 1 and not fast_pool:
         warped = resize_bilinear(warped, (out_hw[0] * s, out_hw[1] * s))
@@ -147,13 +151,17 @@ class ColorEncoder(nn.Module):
 
         ``corr_qk``: instead of ``corrmatrix``, a pair of normalized
         descriptors ((B, Lq, C), (B, Lk, C)) (``ops.corr_warp_cuda.
-        normalize_desc``) warped through the blockwise kernel.
+        normalize_desc``) warped through the blockwise kernel, or with
+        ``cfg.corr_blockwise`` through ``corr_warp_scan`` in row blocks of
+        ``cfg.corr_block``.
 
         ``mask``: (B, H, W, 3) region masks for ``projections_m`` and, with
         a correspondence, ``projections_mw``."""
         assert corrmatrix is None or corr_qk is None
         # fast_pool only where the warped features are purely pooled
         fast_pool = self.cfg.e2_fast_warp_pool and mask is None
+        qk_warp = (functools.partial(corr_warp_scan, block=self.cfg.corr_block)
+                   if self.cfg.corr_blockwise else corr_warp_blockwise)
         swapped = batch_swap(mask) if mask is not None else None
         blocks = list(self.DownToGlobalCode1)
         keys = ["9"] + [str(i) for i in range(len(blocks))]
@@ -175,7 +183,7 @@ class ColorEncoder(nn.Module):
                 yw = _warp_features(y, corr, corr_out_hw, fast_pool)
             elif corr_qk is not None:
                 q, k = corr_qk if s == 0 else (corr_qk[0].detach(), corr_qk[1].detach())
-                yw = _warp_features_qk(y, q, k, corr_out_hw, fast_pool)
+                yw = _warp_features_qk(y, q, k, corr_out_hw, fast_pool, qk_warp)
             if yw is not None:
                 vectors_w.append(self._head(key, yw))
             if mask is not None:

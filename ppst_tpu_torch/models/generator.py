@@ -15,6 +15,13 @@ models/networks/generator.py:104-281).
   through small conv stacks, fused by ``layert`` (-> ``feat`` at structure
   resolution) and ``layert1`` (-> ``feat1`` at 4x that), feeding
   corrm/Rselfcorr.
+* ``cfg.remat_blocks`` / ``cfg.remat_taps`` (under grad only): each head and
+  upsampling block, or each feature tap and fuse block, is recomputed in the
+  backward (``torch.utils.checkpoint``) instead of keeping its activations,
+  as ``nn.remat`` does in the JAX package. Parameters and ``state_dict`` keys
+  do not change. Noise must come in through ``noises`` (or the global RNG,
+  which the checkpoint restores): an explicit ``generator`` would draw anew
+  in the recompute.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import math
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ppst_tpu_torch.models.config import PPSTConfig
 from ppst_tpu_torch.nn.layers import (
@@ -176,6 +184,12 @@ class Generator(nn.Module):
         self.layert = nn.Sequential(*[_ResidualBlock(fuse_ch) for _ in range(3)])
         self.layert1 = nn.Sequential(_ResidualBlock(fuse_ch), TorchConv2d(fuse_ch, fc // 4, 1))
 
+    def _run(self, remat: bool, fn, *args):
+        """``fn(*args)``, checkpointed when ``remat`` and grad is enabled."""
+        if remat and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
     def forward(self, spatial_code, global_codes, extract_features: bool = False,
                 noises=None, generator=None):
         """``noises``: optional flat list of fixed per-StyledConv noise tensors
@@ -187,22 +201,27 @@ class Generator(nn.Module):
         n_up = cfg.netE_num_downsampling_sp
         codes = [_style_normalize(c) for c in global_codes]
         noise_it = iter(noises) if noises is not None else None
+        blocks, taps = cfg.remat_blocks, cfg.remat_taps
+        if blocks and noises is None and generator is not None and torch.is_grad_enabled():
+            raise ValueError("Generator: remat_blocks under grad needs the noise passed in "
+                             "(noises=...), not drawn from a generator")
 
         def take2():
             return (None, None) if noise_it is None else (next(noise_it), next(noise_it))
 
         x = self.SpatialCodeModulation(spatial_code, codes[-1])
         for i in range(cfg.netG_num_base_resnet_layers):
-            x = getattr(self, f"HeadResnetBlock{i}")(x, codes[-1], take2(), generator)
+            x = self._run(blocks, getattr(self, f"HeadResnetBlock{i}"), x, codes[-1], take2(),
+                          generator)
         # the taps read a detached trunk: their losses train only the feature
         # branch, never the trunk above it
-        feas = [self.layer32(x.detach())] if extract_features else []
+        feas = [self._run(taps, self.layer32, x.detach())] if extract_features else []
         h0, w0 = x.shape[1], x.shape[2]
         for j in range(n_up):
-            x = getattr(self, f"UpsamplingResBlock{2 ** (4 + j)}")(
-                x, codes[-2 - j], take2(), generator)
+            x = self._run(blocks, getattr(self, f"UpsamplingResBlock{2 ** (4 + j)}"),
+                          x, codes[-2 - j], take2(), generator)
             if extract_features:
-                feas.append(getattr(self, f"layer{2 ** (6 + j)}")(x.detach()))
+                feas.append(self._run(taps, getattr(self, f"layer{2 ** (6 + j)}"), x.detach()))
 
         rgb = self.ToRGB(x, codes[0])
         if not extract_features:
@@ -211,7 +230,10 @@ class Generator(nn.Module):
             [feas[0]] + [adaptive_avg_pool(f, (h0, w0)) for f in feas[1:]], dim=-1)
         # 4*grid (== 256 at 512px) generalizes the reference's fixed 256x256
         feat1 = torch.cat([resize_bilinear(f, (4 * h0, 4 * w0)) for f in feas], dim=-1)
-        return rgb, self.layert(feat), self.layert1(feat1)
+        for block in self.layert:
+            feat = self._run(taps, block, feat)
+        feat1 = self.layert1[1](self._run(taps, self.layert1[0], feat1))
+        return rgb, feat, feat1
 
 
 def make_fixed_noise(cfg: PPSTConfig, generator: torch.Generator, batch: int, crop: int,

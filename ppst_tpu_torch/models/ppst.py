@@ -35,6 +35,7 @@ from ppst_tpu_torch.models.losses import (
     rscl_loss_sharded,
 )
 from ppst_tpu_torch.nn.layers import init_weights
+from ppst_tpu_torch.ops import corr_blockwise
 from ppst_tpu_torch.ops.corr import corrm, rselfcorr, warp
 from ppst_tpu_torch.ops.corr_warp_cuda import normalize_desc
 from ppst_tpu_torch.ops.guided_filter import guided_filter
@@ -292,24 +293,50 @@ class PPSTModel(nn.Module):
 
         return run
 
+    # A correspondence handle of the losses is the dense (B, L, L) matrix or,
+    # with cfg.corr_blockwise, a (q, k) pair of normalized descriptors that
+    # is never multiplied out (ops.corr_blockwise): the 1024px training mode.
+
     def _training_corrs(self, sps):
-        """(corr_sw, corr_self): corrm(sps, swap(sps)) and corrm(sps, sps)."""
-        return self.corrm(sps, self.swap(sps)), self.corrm(sps, sps)
+        """(corr_sw, corr_self): corrm(sps, swap(sps)) and corrm(sps, sps).
+        Blockwise, with n the normalized descriptors (split at
+        cfg.g_fuse_ch, as the dense corrm): (swap(n), n) and (n, n)."""
+        if not self.cfg.corr_blockwise:
+            return self.corrm(sps, self.swap(sps)), self.corrm(sps, sps)
+        n = corr_blockwise.normalize_desc(sps, split=self.cfg.g_fuse_ch)
+        return (self.swap(n), n), (n, n)
+
+    def _swap_corr(self, corr):
+        """The batch-pair swap of a handle: both descriptors in qk form."""
+        if isinstance(corr, tuple):
+            return self.swap(corr[0]), self.swap(corr[1])
+        return self.swap(corr)
+
+    def _warp_any(self, x, corr):
+        if isinstance(corr, tuple):
+            return corr_blockwise.warp_qk(x, corr[0], corr[1], block=self.cfg.corr_block)
+        return warp(x, corr)
 
     @staticmethod
-    def _warp_any(x, corr):
-        return warp(x, corr)
+    def _corr_kw(corr):
+        """E2's keyword for a handle."""
+        return {"corr_qk": corr} if isinstance(corr, tuple) else {"corrmatrix": corr}
 
     def discriminator_losses(self, real, mask, generator: torch.Generator):
         """D's losses (reference ppst_model.py:105-138). The generator-side
         passes carry no gradient; real, rec and mix are scored in one D
-        pass. ``mask`` is unused, as in the reference."""
+        pass. ``mask`` is unused, as in the reference.
+
+        ``cfg.unbatch_passes`` (the 1024px mode): mix and rec in separate G
+        passes, each part scored by its own D pass, D's forward recomputed in
+        the backward (``_r(..., "d")``)."""
         cfg = self.cfg
         del mask
         self.num_d_iters += 1
         b = real.shape[0]
         assert b % 2 == 0, f"batch {b} must be even"
         g_fwd, g_ext = self._g_pass("g_mix"), self._g_pass("g_ext", extract_features=True)
+        d_fwd = self._r(self.D, "d") if cfg.unbatch_passes else self.D
         with torch.no_grad():
             sp = self.E1(real)
             gl = list(self.E2(real).vectors)
@@ -319,12 +346,15 @@ class PPSTModel(nn.Module):
                 corr_sw, corr_self = self._training_corrs(
                     torch.cat([feas, rselfcorr(feas1)], dim=-1))
                 if cfg.lambda_StyleCon > 0.0:
-                    gl_w = list(self.E2(real, corrmatrix=corr_sw).vectors_w)
+                    gl_w = list(self.E2(real, **self._corr_kw(corr_sw)).vectors_w)
                 # reconstruction styles are the self-corr-warped vectors
-                gl = list(self.E2(real, corrmatrix=corr_self).vectors_w)
+                gl = list(self.E2(real, **self._corr_kw(corr_self)).vectors_w)
             gl_half = [self.half_batch(g) for g in gl]
             mix = None
-            if gl_w is not None:
+            if gl_w is not None and cfg.unbatch_passes:
+                mix = g_fwd(self.swap(sp), gl_w, generator)
+                rec = g_fwd(self.half_batch(sp), gl_half, generator)
+            elif gl_w is not None:
                 # one batched G pass for mix (B) and rec (B/2)
                 g_out = g_fwd(self.shard_concat([self.swap(sp), self.half_batch(sp)]),
                               [self.shard_concat([w, h]) for w, h in zip(gl_w, gl_half)],
@@ -336,8 +366,11 @@ class PPSTModel(nn.Module):
         losses = {}
         if cfg.lambda_GAN > 0.0:
             parts = [real, rec] + ([mix] if mix is not None else [])
-            scores = self.shard_split(self.D(self.shard_concat(parts)),
-                                      [p.shape[0] for p in parts])
+            if cfg.unbatch_passes:
+                scores = [d_fwd(p) for p in parts]
+            else:
+                scores = self.shard_split(d_fwd(self.shard_concat(parts)),
+                                          [p.shape[0] for p in parts])
             losses["D_real"] = gan_loss(scores[0], True) * cfg.lambda_GAN
             losses["D_rec"] = gan_loss(scores[1], False) * 0.5 * cfg.lambda_GAN
             if len(scores) > 2:
@@ -364,8 +397,8 @@ class PPSTModel(nn.Module):
         assert b % 2 == 0, f"batch {b} must be even"
         e1 = self._r(self.E1, "e1")
         e2_plain = self._r(lambda x: tuple(self.E2(x).vectors), "e2")
-        e2_w = self._r(lambda x, c: tuple(self.E2(x, corrmatrix=c).vectors_w), "e2")
-        e2_full = self._r(lambda x, c, m: self.E2(x, corrmatrix=c, mask=m), "e2")
+        e2_w = self._r(lambda x, c: tuple(self.E2(x, **self._corr_kw(c)).vectors_w), "e2")
+        e2_full = self._r(lambda x, c, m: self.E2(x, mask=m, **self._corr_kw(c)), "e2")
         e2_mask = self._r(lambda x, m: tuple(self.E2(x, mask=m).projections_m), "e2")
         g_mix, g_cyc = self._g_pass("g_mix"), self._g_pass("g_cyc")
         g_ext = self._g_pass("g_ext", extract_features=True)
@@ -384,7 +417,8 @@ class PPSTModel(nn.Module):
                 out = e2_full(real, corr_sw, mask)
                 pro_ms, gl_w, pro_mw = out.projections_m, out.vectors_w, out.projections_mw
             if cfg.lambda_Cycwarp > 0.0:
-                image_rec = self._warp_any(self._warp_any(real, corr_sw), self.swap(corr_sw))
+                image_rec = self._warp_any(self._warp_any(real, corr_sw),
+                                           self._swap_corr(corr_sw))
                 losses["image_warp_reg"] = lpips_fn(image_rec, real).mean() * cfg.lambda_Cycwarp
             if cfg.lambda_Maskwarp > 0.0:
                 losses["Mask_warp"] = (l1_loss(self._warp_any(mask, corr_sw), self.swap(mask))
@@ -392,7 +426,8 @@ class PPSTModel(nn.Module):
 
         mix = None
         if cfg.training_stage == 2 and cfg.lambda_StyleCon > 0.0:
-            # one batched G pass for rec (B) and mix (B)
+            # one batched G pass for rec (B) and mix (B); unbatch_passes
+            # leaves it batched, as in the JAX package (ppst.py:431-440)
             g_out = g_mix(self.shard_concat([sp, self.swap(sp)]),
                           [self.shard_concat([a, w]) for a, w in zip(gl, gl_w)], generator)
             rec, mix = self.shard_split(g_out, [b, b])

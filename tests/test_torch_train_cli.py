@@ -141,6 +141,24 @@ def test_checkpoint_serves_in_jax_and_in_the_port(trained, rng, tmp_path):
     assert np.asarray(Image.open(out[0])).shape == (64, 64, 3)
 
 
+def _losses(run_dir):
+    """The loss values printed at step 4 in ``loss_log.txt`` (after the
+    times; a resumed run appends later lines)."""
+    lines = (run_dir / "loss_log.txt").read_text().splitlines()
+    return next(line for line in lines if line.startswith("(iters: 4,")).split(") ", 1)[1]
+
+
+def test_train_cli_remat_knobs(trained, tmp_path):
+    """``--remat_taps true --remat_blocks true`` reach the model and opt.txt,
+    and the run's losses are those of the same steps without them (the
+    ``trained`` fixture): they only recompute."""
+    bundle = cli.main(_args(tmp_path, ["--remat_taps", "true", "--remat_blocks", "true"]))
+    assert bundle.model.cfg.remat_taps and bundle.model.cfg.remat_blocks
+    opt = (tmp_path / "run" / "opt.txt").read_text()
+    assert "remat_taps: True" in opt and "remat_blocks: True" in opt
+    assert _losses(tmp_path / "run") == _losses(trained)
+
+
 def test_train_cli_refusals(tmp_path, monkeypatch):
     """Snapshots and in-training evaluators are refused as not ported; without
     a card and without --device cpu the CLI raises before writing."""
@@ -187,6 +205,24 @@ def test_celebamask_items_match_jax(tmp_path):
         np.testing.assert_array_equal(a["mask_A"].sum(-1), np.ones((32, 32)))
         flips.add(port.draw_flip(i))
     assert flips == {True, False}  # both branches of the shared flip ran
+
+
+def test_data_at_crop_1024(tmp_path):
+    """1024px training data: the synthetic and CelebAMask (resize) items and
+    the loader's batches are 1024 x 1024, the same arrays as ppst_tpu's."""
+    _write_celebamask(tmp_path, n=2)
+    opt = cli.parse(["--name", "x", "--dataroot", str(tmp_path / "img"), "--dataroot2",
+                     str(tmp_path / "mask"), "--load_size", "1024", "--crop_size", "1024",
+                     "--batch_size", "2", "--nThreads", "2"])
+    a, b = CelebAMaskDataset(opt)[1], JaxCelebAMask(opt)[1]
+    assert a["real_A"].shape == (1024, 1024, 3) and a["mask_A"].shape == (1024, 1024, 3)
+    np.testing.assert_array_equal(a["real_A"], b["real_A"])
+    np.testing.assert_array_equal(a["mask_A"], b["mask_A"])
+    opt.dataset_mode, opt.synthetic_size = "synthetic", 3
+    port, ref = next(ConfigurableDataLoader(opt)), next(JaxLoader(opt))
+    assert port["real_A"].shape == (2, 1024, 1024, 3) and port["mask_A"].shape == (2, 1024, 1024, 3)
+    np.testing.assert_array_equal(port["real_A"], ref["real_A"])
+    np.testing.assert_array_equal(port["mask_A"], ref["mask_A"])
 
 
 def test_loader_batches_match_jax():
