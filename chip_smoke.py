@@ -7,7 +7,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 
 1. build: prints the card's name and power limit, builds the hand-written
    kernels from ``ppst_tpu_torch/csrc`` (one ``nvcc`` per source, all at
-   once) and prints each build time;
+   once) and prints each build time and ptxas's registers, shared memory
+   and spills of K3's kernels;
 2. kernel: every kernel against its plain PyTorch version on the card (TF32
    off) at the main paths' shapes and an odd shape, with its determinism, its
    time, the plain version's time, the time of the one PyTorch call that
@@ -78,15 +79,20 @@ TAP_MAX_ABS, TAP_MEAN_ABS = 0.06, 5e-3
 # K3's tolerance against its plain version, in units of max|v|. bf16: the
 # kernel rounds P to bf16 for the P V product (as the TPU's one-pass dot did)
 # and the output once, each 2^-9 relative; float32: sums in another order.
-# Measured on an H100: at most one bf16 step of the output (0.003 max|v|), a
-# mean of 5.4e-5 max|v|; float32 5e-7 max|v|.
+# Measured on an H100 (the wgmma kernel, ppst_tpu_torch/tools/k3_ab.py): at
+# most one bf16 step of the output (0.0031 max|v|), a mean of 3.1e-5 max|v|;
+# float32 5e-7 max|v|.
 CORR_BF16_MAX, CORR_BF16_MEAN, CORR_F32_MAX = 1e-2, 2e-4, 1e-5
-# (B, Lq, Lk, C, Cv, dtype): 512px and 1024px at the narrowest and widest E2
-# scale, an odd rectangular shape, and a float32 shape with ragged tails
+# (B, Lq, Lk, C, Cv, dtype): 512px at the narrowest and widest E2 scale,
+# 1024px at all four (the path's widths), an odd rectangular shape, a float32
+# shape with ragged tails, and the 512px grid's dispatch of 8 pairs
 CORR_SHAPES = [(1, 4096, 4096, 512, 32, torch.bfloat16), (1, 4096, 4096, 512, 256, torch.bfloat16),
                (1, 16384, 16384, 512, 32, torch.bfloat16),
                (1, 16384, 16384, 512, 256, torch.bfloat16),
-               (1, 200, 136, 512, 48, torch.bfloat16), (2, 300, 200, 288, 40, torch.float32)]
+               (1, 200, 136, 512, 48, torch.bfloat16), (2, 300, 200, 288, 40, torch.float32),
+               (1, 16384, 16384, 512, 64, torch.bfloat16),
+               (1, 16384, 16384, 512, 128, torch.bfloat16),
+               (8, 4096, 4096, 512, 256, torch.bfloat16)]
 # blockwise against dense grid outputs on the [-1, 1] scale, both in bf16: the
 # two round the correspondence at different places. Measured on an H100:
 # 0.0137 max, 0.00156 mean; the bound leaves 3.5x.
@@ -600,7 +606,8 @@ def corr_warp_phase(cw, bw, flops, card):
         print(f"[kernel] corr_warp_blockwise {shape}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"scaled_dot_product_attention ({backend}) {library_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}: {ops / 1e9:.1f} GFLOP at {flops / 1e12} "
-              f"TFLOP/s, {min_bytes / 1e6:.1f} MB at {bw / 1e12} TB/s); {card}", flush=True)
+              f"TFLOP/s, {min_bytes / 1e6:.1f} MB at {bw / 1e12} TB/s), "
+              f"{bound_ms / ms:.1%} of the bound; {card}", flush=True)
         if lq == 16384 and cv == 32:
             record = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                           library_ms=library_ms)
@@ -1401,6 +1408,9 @@ def build_phase():
     with ThreadPoolExecutor(len(names)) as pool:
         for name, secs in zip(names, pool.map(build, names)):
             print(f"[build] csrc/{name}.cu built in {secs:.1f} s", flush=True)
+    # K3's registers, shared memory and spills, as ptxas reported them
+    for line in _nvcc.ptxas_summary(_nvcc.build(_nvcc.PKG / "csrc" / "corr_warp.cu")):
+        print(f"[build] ptxas corr_warp.cu {line}", flush=True)
     tap_cuda._lib()
     tap_cuda._bwd_lib()
     corr_warp_cuda._lib()

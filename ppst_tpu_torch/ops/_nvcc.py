@@ -3,7 +3,9 @@
 Each source is compiled with ``nvcc`` for sm_90a into a shared library with a
 plain C interface, at first use, into ``ppst_tpu_torch/_build/`` (listed in
 ``.gitignore``), keyed by a hash of the source, the ``*.cuh`` headers beside
-it and the flags. The wrappers bind it through ``ctypes``.
+it and the flags. ``ptxas``'s report (registers, shared memory and spills of
+each kernel) is kept beside the library as ``<library>.log``. The wrappers
+bind it through ``ctypes``.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent
 BUILD = PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def nvcc() -> str:
@@ -37,9 +39,43 @@ def build(src: Path) -> Path:
     if not lib.exists():
         BUILD.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)], check=True)
+        run = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                             capture_output=True, text=True)
+        if run.returncode:
+            raise RuntimeError(f"nvcc failed on {src.name}:\n{run.stdout}{run.stderr}")
+        log(lib).write_text(run.stdout + run.stderr)
         os.replace(tmp, lib)
     return lib
+
+
+def log(lib: Path) -> Path:
+    """The compiler's report kept beside a built library."""
+    return lib.with_name(lib.name + ".log")
+
+
+def ptxas_summary(lib: Path) -> list[str]:
+    """Each kernel's registers, shared memory and spills from ``lib``'s build
+    report, one line per kernel."""
+    if not log(lib).exists():
+        return []
+    lines, kernel = [], None
+    for line in log(lib).read_text().splitlines():
+        if "Compiling entry function" in line:
+            kernel = demangle(line.split("'")[1] if "'" in line else line)
+        elif kernel and ("bytes stack frame" in line or "Used" in line):
+            lines.append(f"{kernel}: {line.split('info    :')[-1].strip()}")
+    return lines
+
+
+def demangle(name: str) -> str:
+    """A kernel's C++ name without its namespace and parameters, where
+    ``c++filt`` is installed; else the symbol as it is."""
+    tool = shutil.which("c++filt")
+    if not tool:
+        return name
+    full = subprocess.run([tool, name], capture_output=True, text=True).stdout.strip() or name
+    full = full.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return full.split("(")[0].split("::")[-1]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -21,7 +21,9 @@ import torch
 from ppst_tpu_torch.ops import _nvcc
 from ppst_tpu_torch.ops.corr import _NORM_EPS
 
-_MAX_C_BF16 = 752  # channels whose query and key tiles fit in shared memory
+# The bf16 kernel keeps 128 query rows x C in shared memory beside the K
+# ring and two V stages: C <= 512 fits at every Cv (224 KB at Cv = 256)
+_MAX_C_BF16 = 512
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -54,21 +56,13 @@ def corr_warp_blockwise_reference(q, k, v, temperature: float = 0.01):
     return torch.matmul(torch.softmax(logits, dim=-1), v.float()).to(v.dtype)
 
 
-def corr_warp_blockwise(q, k, v, temperature: float = 0.01):
-    """``softmax(q @ k^T / temperature) @ v`` per batch entry.
-
-    ``q`` (B, Lq, C) and ``k`` (B, Lk, C) are pre-normalized descriptors
-    (``normalize_desc``), ``v`` (B, Lk, Cv) the values; all three float32 or
-    all three bfloat16. Returns (B, Lq, Cv) in ``v``'s dtype.
-
-    CPU tensors run the plain version. CUDA tensors launch the kernel at any
-    Lq, Lk >= 1; for bfloat16 it takes C <= 752 with C and Cv multiples of 8,
-    and anything it does not take raises.
-    """
-    if q.device.type == "cpu":
-        return corr_warp_blockwise_reference(q, k, v, temperature)
-    if q.device.type != "cuda":
-        raise ValueError(f"corr_warp_blockwise: unsupported device {q.device}")
+def check_inputs(q, k, v):
+    """Raise ``ValueError`` unless the kernel takes ``q``, ``k`` and ``v``
+    (wherever they lie); returns (B, Lq, C, Lk, Cv). Both kernels take 3-D
+    tensors of one dtype (float32 or bfloat16) on one device with agreeing
+    shapes and B <= 65535. The bfloat16 kernel also needs C <= 512 and C and
+    Cv multiples of 8 (its TMA rows are 16-byte multiples); a Cv above 256
+    runs as several passes of 256 columns."""
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError("corr_warp_blockwise: q, k and v must be 3-D")
     bsz, lq, c = q.shape
@@ -86,6 +80,25 @@ def corr_warp_blockwise(q, k, v, temperature: float = 0.01):
     if q.dtype == torch.bfloat16 and (c % 8 or cv % 8 or c > _MAX_C_BF16):
         raise ValueError(f"corr_warp_blockwise: the bfloat16 kernel takes C <= {_MAX_C_BF16} "
                          f"with C and Cv multiples of 8, got C={c}, Cv={cv}")
+    return bsz, lq, c, lk, cv
+
+
+def corr_warp_blockwise(q, k, v, temperature: float = 0.01):
+    """``softmax(q @ k^T / temperature) @ v`` per batch entry.
+
+    ``q`` (B, Lq, C) and ``k`` (B, Lk, C) are pre-normalized descriptors
+    (``normalize_desc``), ``v`` (B, Lk, Cv) the values; all three float32 or
+    all three bfloat16. Returns (B, Lq, Cv) in ``v``'s dtype.
+
+    CPU tensors run the plain version. CUDA tensors launch the kernel at any
+    Lq, Lk >= 1; for bfloat16 it takes what ``check_inputs`` lets through,
+    and anything else raises.
+    """
+    if q.device.type == "cpu":
+        return corr_warp_blockwise_reference(q, k, v, temperature)
+    if q.device.type != "cuda":
+        raise ValueError(f"corr_warp_blockwise: unsupported device {q.device}")
+    bsz, lq, c, lk, cv = check_inputs(q, k, v)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("corr_warp_blockwise: q, k and v must be 16-byte aligned")

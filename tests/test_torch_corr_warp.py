@@ -124,3 +124,87 @@ def test_e2_corr_qk_matches_corrmatrix_and_jax(e2_pair, rng):
     for a, d, w in zip(fused, dense, want):
         np.testing.assert_allclose(a.numpy(), d.numpy(), rtol=2e-3, atol=2e-4)
         np.testing.assert_allclose(a.numpy(), np.asarray(w), rtol=2e-3, atol=2e-4)
+
+
+# chip_smoke.py's CORR_BF16_MAX and CORR_BF16_MEAN: the card's check of the
+# bf16 kernel against its plain version, in units of max|v|
+CARD_BF16_MAX, CARD_BF16_MEAN = 1e-2, 2e-4
+
+
+def _emulate_bf16_kernel(q, k, v, temperature, block=64):
+    """The bf16 kernel's arithmetic, written out: keys in tiles of ``block``,
+    float32 logits of bf16 q and k, exp2 with log2(e)/T folded into the
+    exponent, a running max and sum in float32, P rounded to bf16 per tile
+    for the P V product, and the output rounded once."""
+    scale2 = torch.tensor((1.0 / temperature) * 1.4426950408889634, dtype=torch.float32)
+    b, lq, _ = q.shape
+    lk, cv = v.shape[1], v.shape[2]
+    m = torch.full((b, lq, 1), float("-inf"))
+    l = torch.zeros((b, lq, 1))
+    o = torch.zeros((b, lq, cv))
+    for k0 in range(0, lk, block):
+        s = torch.matmul(q.float(), k[:, k0:k0 + block].float().transpose(1, 2))
+        mx = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp2((m - mx) * scale2)
+        p = torch.exp2(s * scale2 - mx * scale2)
+        l = l * corr + p.sum(-1, keepdim=True)
+        o = o * corr + torch.matmul(p.bfloat16().float(), v[:, k0:k0 + block].float())
+        m = mx
+    return (o / l).bfloat16()
+
+
+@pytest.mark.parametrize("lq,lk,cv", [(1024, 1024, 32), (520, 1000, 256)])
+def test_blocked_bf16_arithmetic_within_card_tolerance(rng, lq, lk, cv):
+    """The kernel's blocked arithmetic against the plain version at C = 512,
+    T = 0.01 on unit-norm descriptors (logits up to +-100), within the
+    tolerances the card's check holds the kernel to; (520, 1000) has a ragged
+    last key tile. Shows on the CPU that those tolerances have margin."""
+    c = 512
+    q = cw.normalize_desc(torch.from_numpy(rng.standard_normal((1, lq, c)).astype(np.float32)))
+    k = cw.normalize_desc(torch.from_numpy(rng.standard_normal((1, lk, c)).astype(np.float32)))
+    v = torch.from_numpy(rng.standard_normal((1, lk, cv)).astype(np.float32))
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    got = _emulate_bf16_kernel(q, k, v, 0.01)
+    want = cw.corr_warp_blockwise_reference(q, k, v, 0.01)
+    vmax = v.float().abs().max().item()
+    err = (got.float() - want.float()).abs()
+    print(f"blocked bf16 arithmetic at ({lq}, {lk}, {c}, {cv}): max {err.max().item() / vmax:.2e}"
+          f" max|v|, mean {err.mean().item() / vmax:.2e} max|v|")
+    assert got.shape == want.shape and torch.isfinite(got.float()).all()
+    assert err.max().item() <= CARD_BF16_MAX * vmax
+    assert err.mean().item() <= CARD_BF16_MEAN * vmax
+
+
+def _qkv(b, lq, lk, c, cv, dtype=torch.bfloat16):
+    return (torch.zeros((b, lq, c), dtype=dtype), torch.zeros((b, lk, c), dtype=dtype),
+            torch.zeros((b, lk, cv), dtype=dtype))
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((1, 16384, 16384, 512, 32), torch.bfloat16),   # the 1024px path, narrowest E2 scale
+    ((8, 4096, 4096, 512, 256), torch.bfloat16),    # the 512px grid's dispatch
+    ((1, 200, 136, 512, 48), torch.bfloat16),       # chip_smoke.py's odd shape
+    ((1, 64, 64, 8, 512), torch.bfloat16),          # Cv above 256: passes of 256 columns
+    ((2, 300, 200, 288, 40), torch.float32),        # the float32 kernel
+    ((1, 32, 32, 600, 12), torch.float32),          # float32 has no channel limit
+])
+def test_check_inputs_takes(shape, dtype):
+    b, lq, lk, c, cv = shape
+    assert cw.check_inputs(*_qkv(b, lq, lk, c, cv, dtype)) == (b, lq, c, lk, cv)
+
+
+@pytest.mark.parametrize("args,match", [
+    (_qkv(1, 64, 64, 520, 32), "C <= 512"),          # Q no longer fits in shared memory
+    (_qkv(1, 64, 64, 100, 32), "multiples of 8"),    # TMA rows of 16-byte multiples
+    (_qkv(1, 64, 64, 512, 12), "multiples of 8"),
+    (_qkv(1, 64, 64, 512, 32)[:2] + (torch.zeros((1, 63, 32), dtype=torch.bfloat16),),
+     "do not agree"),
+    (_qkv(1, 64, 64, 512, 32)[:2] + (torch.zeros((1, 64, 32)),), "float32 or all bfloat16"),
+    ((torch.zeros((64, 512)),) * 3, "3-D"),
+    (_qkv(65536, 1, 1, 8, 8), "oversized"),
+])
+def test_check_inputs_refuses(args, match):
+    """What the kernel does not take raises before any launch; the wrapper
+    runs this check on every CUDA call."""
+    with pytest.raises(ValueError, match=match):
+        cw.check_inputs(*args)
