@@ -8,14 +8,15 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 1. build: prints the card's name and power limit, builds the hand-written
    kernels from ``ppst_tpu_torch/csrc`` (one ``nvcc`` per source, all at
    once) and prints each build time and ptxas's registers, shared memory
-   and spills of K3's kernels;
+   and spills of K3's and K6's kernels;
 2. kernel: every kernel against its plain PyTorch version on the card (TF32
    off) at the main paths' shapes and an odd shape, with its determinism, its
    time, the plain version's time, the time of the one PyTorch call that
    computes the same function where there is one, and the least time the
    card could take; the fused tap's backward (K2) with and without dx; the
    fused StyledConv (K6) with the unfused StyledConv's time beside it, and
-   its backward with and without dx; the standalone upfirdn2d (K4) and bias +
+   its backward with and without dx and its split (passes 1-2, dW, dx), each
+   with its share of the bound; the standalone upfirdn2d (K4) and bias +
    leaky ReLU (K5) with the port's composite ops' times beside them;
 3. path: 512px ``stylize`` at full width in bf16 with the fused tap and the
    guided filter, batch 1 then batch 8 pairs; then 1024px ``stylize_fused``
@@ -131,10 +132,11 @@ TRAIN_TIE_REACH = tuple(f"D.stylegan2_D.convs.{k}." for k in ("0", "3", "4", "5"
                                                               "6.conv2"))
 # K6 (the fused StyledConv) at (B, H, W, Cin, Cout): an odd shape, then the
 # 512px generator's (heads at 64x64, the up-blocks' conv2 at 128-512px) at
-# batch 8 (decode) and 16 (extraction); its record is the decode's up64 conv2
+# batch 8 (decode) and 16 (extraction), and the 1024px stylize_fused up-block
+# conv2; its record is the decode's up64 conv2
 K6_SHAPES = [(1, 20, 36, 48, 80), (8, 64, 64, 256, 384), (8, 64, 64, 512, 512),
              (8, 128, 128, 512, 512), (8, 256, 256, 256, 256), (8, 512, 512, 128, 128),
-             (16, 512, 512, 128, 128)]
+             (16, 512, 512, 128, 128), (2, 1024, 1024, 128, 128)]
 K6_RECORD = (8, 512, 512, 128, 128)
 # K6's tolerance against its plain version (TF32 off), tightened from
 # test_styled_conv_pallas_fwd_bwd's 0.05 max(1, max|ref|) on the output and
@@ -404,7 +406,7 @@ def styled_conv_phase(sc, bw, flops, card):
         print(f"[kernel] styled_conv3x3 {shape}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"composite StyledConv {composite_ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}: {gflop:.1f} GFLOP at {flops / 1e12} TFLOP/s, {mb:.1f} MB at "
-              f"{bw / 1e12} TB/s); {card}", flush=True)
+              f"{bw / 1e12} TB/s), {bound_ms / ms:.1%} of the bound; {card}", flush=True)
         if shape == K6_RECORD:
             record = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                           composite_ms=composite_ms)
@@ -458,9 +460,15 @@ def styled_conv_bwd_phase(sc, bw, flops, card):
         bound_ms, bound_by, gflop, mb = styled_conv_bound(shape, bw, flops, backward=True)
         ms, plain_ms = cuda_ms(lambda: sc.styled_conv3x3_bwd(*args), reps=10,
                                other=lambda: sc.styled_conv3x3_bwd_reference(*args))
-        print(f"[kernel] styled_conv3x3_bwd {shape}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by}: {gflop:.1f} GFLOP at {flops / 1e12} "
-              f"TFLOP/s, {mb:.1f} MB at {bw / 1e12} TB/s); {card}", flush=True)
+        # the split: passes 1-2 (dpre, the sums, db, dgain), dW and dx, each alone
+        run, _ = sc._bwd_parts(*args)
+        split = {part: cuda_ms(lambda p=part: run(p), reps=10) for part in ("dpre", "dw", "dx")}
+        print(f"[kernel] styled_conv3x3_bwd {shape}: {ms:.4f} ms (passes 1-2 "
+              f"{split['dpre']:.4f}, dW {split['dw']:.4f}, dx {split['dx']:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {gflop:.1f} GFLOP at "
+              f"{flops / 1e12} TFLOP/s, {mb:.1f} MB at {bw / 1e12} TB/s), {bound_ms / ms:.1%} "
+              f"of the bound; {card}", flush=True)
+        del run
         if shape == K6_RECORD:
             record = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
     record["max_abs_err"] = max_err
@@ -1408,9 +1416,10 @@ def build_phase():
     with ThreadPoolExecutor(len(names)) as pool:
         for name, secs in zip(names, pool.map(build, names)):
             print(f"[build] csrc/{name}.cu built in {secs:.1f} s", flush=True)
-    # K3's registers, shared memory and spills, as ptxas reported them
-    for line in _nvcc.ptxas_summary(_nvcc.build(_nvcc.PKG / "csrc" / "corr_warp.cu")):
-        print(f"[build] ptxas corr_warp.cu {line}", flush=True)
+    # K3's and K6's registers, shared memory and spills, as ptxas reported them
+    for name in ("corr_warp", "styled_conv", "styled_conv_bwd"):
+        for line in _nvcc.ptxas_summary(_nvcc.build(_nvcc.PKG / "csrc" / f"{name}.cu")):
+            print(f"[build] ptxas {name}.cu {line}", flush=True)
     tap_cuda._lib()
     tap_cuda._bwd_lib()
     corr_warp_cuda._lib()

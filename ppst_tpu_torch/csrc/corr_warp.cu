@@ -58,11 +58,9 @@
 // Kernels launch on the caller's stream and allocate nothing. ppst_corr_warp
 // returns the first CUDA error of its launch (0 when it was accepted).
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -93,124 +91,6 @@ struct Layout {
   static_assert(kStages >= 4, "K ring too shallow");
   static_assert(kBytes <= kMaxSmem, "shared memory over budget");
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// TMA: the box at (c0, c1, c2) of a 3-D map into shared memory, completing
-// on mbarrier `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                         int c2, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128B-swizzled tile: 14-bit start
-// address, leading and stride byte offsets in 16-byte units, layout 1 = B128.
-__device__ __forceinline__ uint64_t desc_b128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-// K-major operand (64 rows of 128 bytes; channels contiguous): 8-row groups
-// 1024 bytes apart; a k16 step adds 32 bytes to the start address.
-__device__ __forceinline__ uint64_t desc_k_major(uint32_t addr) {
-  return desc_b128(addr, 16, 1024);
-}
-
-// MN-major operand (V: keys are rows of 64 contiguous columns): 8-key groups
-// 1024 bytes apart. One 64-column atom per wgmma, so the offset between atoms
-// along N is never used; both offsets name the 8-key stride.
-__device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr) {
-  return desc_b128(addr, 1024, 1024);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from touching accumulators while a wgmma owns them.
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-#define PPST_ACC32(d)                                                                     \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),     \
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),          \
-      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),       \
-      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),       \
-      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
-      "+f"(d[31])
-#define PPST_D32                                                                      \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
-  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-
-// d (64 x 64, float32) (+)= A (64 x 16) B (16 x 64), both bf16 in shared
-// memory, K-major; d is overwritten when accumulate is 0.
-__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " PPST_D32
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : PPST_ACC32(d)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 64, float32) += A (64 x 16, bf16 fragments in registers) B (16 x
-// 64, bf16 in shared memory, MN-major: transposed on read).
-__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " PPST_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : PPST_ACC32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
 
 // grid (ceil(Lq / 128), B, ceil(Cv / 256)), kThreads threads, Layout<NVC>::kBytes
 // of dynamic shared memory. Maps: q (C, Lq, B) with boxes of 64 x 128 x 1;
@@ -393,9 +273,6 @@ corr_warp_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-#undef PPST_ACC32
-#undef PPST_D32
-
 // float32: grid (ceil(Lq / 32), B, ceil(Cv / 256)), 256 threads. Thread t
 // owns value column c0 + t of all 32 rows; S is taken 32 channels at a time.
 constexpr int kFB = 32;      // query rows and keys per step
@@ -477,42 +354,13 @@ corr_warp_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime: no -lcuda.
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
 // A 3-D map of a contiguous bf16 tensor (batch, rows, inner) read in boxes of
 // 64 x box_rows x 1, 128B-swizzled; out-of-range elements read as zeros.
 bool make_map(CUtensorMap* map, const void* ptr, int inner, int rows, int batch, int box_rows) {
-  EncodeTiledFn fn = encode_tiled();
-  if (!fn) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows, (cuuint64_t)batch};
   const cuuint64_t strides[2] = {(cuuint64_t)inner * 2, (cuuint64_t)inner * rows * 2};
   const cuuint32_t box[3] = {(cuuint32_t)kChunk, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_bf16_map(map, ptr, 3, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <int NVC>

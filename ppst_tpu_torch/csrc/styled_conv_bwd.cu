@@ -28,21 +28,36 @@
 // Design. Passes 1 and 2 are elementwise: a block owns a chunk of one
 // sample's pixels, a thread 8 channels (16-byte loads) of every ry-th row;
 // the block's partial sums go to scratch and group_sum_kernel reduces them in
-// a fixed order. dW is a GEMM over pixels (M = Cin, N = Cout, K = pixels of
-// all samples) per tap. mma.sync wants both operands contiguous along the
-// pixel axis, and both are stored channel-contiguous (NHWC): the tiles are
-// staged as they lie, 32 pixels x 128 channels, with cp.async (zero fill for
-// a neighbour outside the image), and ldmatrix.trans delivers them transposed.
-// The pixels are split into a fixed number of slices per shape; each block
-// writes its float32 partial dW, and dw_reduce_kernel sums the slices in
-// order. The scratch stays within 64 Mi floats (256 MB) for any shape; at the
-// generator's 512px shapes it is 75 MB or less. No atomics anywhere: the
-// gradients are the same bits on every run. The bf16 products of x and dpre
-// are exact in float32, as in the Pallas kernel's float32 dot.
+// a fixed order.
+//
+// dW is a GEMM per tap, M = Cin, N = Cout, K = pixels of all samples, on
+// wgmma fed by TMA, warp-specialised like the forward (styled_conv.cu). A
+// block owns 128 input x 128 output channels, one kernel row dy (its three
+// taps dx = 0, 1, 2) and a slice of the pixels, walked in 64-pixel row
+// segments. Each segment brings, by TMA, the dpre tile (64 pixels x 128
+// output channels, 128B-swizzled) and the haloed x window of the same
+// forward's layout: one image row (row + dy - 1), 66 columns, 128 channels,
+// shared memory [channel group of 8][column][8 channels], zero-filled past the
+// image. That window, read transposed, is wgmma's A (x^T, channels x pixels)
+// for all three taps: MN-major with no swizzle, core matrices of 8 pixels x 8
+// channels, LBO 128 bytes between pixel groups (K), SBO 66 x 16 = 1056 bytes
+// between channel groups (M); tap dx moves the start by dx x 16 bytes. dpre
+// is B, MN-major, two 64-channel atoms 8 KB apart (LBO), 8-pixel groups 1024
+// bytes apart (SBO). So each dpre tile and x window fetched once serves three
+// taps and both consumer warpgroups (64 input channels each, 3 x 64 float32
+// accumulators a thread, under the 240 registers setmaxnreg gives it; ptxas:
+// 168 at launch, no spills). The producer warpgroup (24 registers) keeps a
+// ring of 6 stages (33 KB each, 199 KB) in flight. Each block writes its float32 partial dW, and
+// dw_reduce_kernel sums the slices in order. The scratch stays within 64 Mi
+// floats (256 MB) for any shape; at the generator's 512px shapes it is 105 MB
+// or less. No atomics anywhere: the gradients are the same bits on every run.
+// The bf16 products of x and dpre are exact in float32, as in the Pallas
+// kernel's float32 dot.
 //
 // Kernels launch on the caller's stream and allocate nothing: the caller
 // passes outputs and scratch (ppst_styled_conv_bwd_scratch_floats).
-// ppst_styled_conv_bwd returns the first CUDA error of its launches.
+// ppst_styled_conv_bwd runs passes 1-2, dW or both, and returns the first
+// CUDA error of its launches.
 
 #include "styled_conv_common.cuh"
 
@@ -50,12 +65,20 @@ namespace {
 
 constexpr int kEwThreads = 256;
 constexpr int kMaxChunks = 256;  // pixel chunks per sample in passes 1 and 2
-// dW tiles: 128 input x 128 output channels, k-steps of 32 pixels
-constexpr int WM = 128, WN = 128, WK = 32, WSTAGES = 4, WTHREADS = 256;
-constexpr int XS = WM + 8, DS = WN + 8;  // padded bf16 rows of the staged tiles
-constexpr int kDwSmem = WSTAGES * WK * (XS + DS) * 2;
+// dW: 128 input x 128 output channels x one kernel row a block, steps of one
+// 64-pixel row segment
+constexpr int kDwM = 128, kDwN = 128, kDwSeg = 64;
+constexpr int kDwWinCols = kDwSeg + 2;
+constexpr int kDwGroupBytes = kDwWinCols * 16;       // SBO of A: 1056 bytes
+constexpr int kDwWinBytes = (kDwM / 8) * kDwGroupBytes;  // 16896
+constexpr int kDwDBytes = kDwSeg * kDwN * 2;            // dpre tile: 16 KB
+constexpr int kDwStage = 33792;                          // dpre + window, 1024-aligned
+constexpr int kDwStages = 6, kDwThreads = 384, kAlign = 1024;
+constexpr int kDwSmem = kDwStages * kDwStage + 256 + kAlign;
+static_assert(kDwDBytes + kDwWinBytes <= kDwStage, "dW stage too small");
+static_assert(kDwSmem <= 232448, "shared memory over budget");
 constexpr long kMaxDwScratch = 64L << 20;  // floats
-constexpr int kTargetBlocks = 8 * 132;     // dW blocks to aim for: 8 per SM
+constexpr int kTargetBlocks = 4 * 132;     // dW blocks to aim for: 4 waves of an H100
 
 struct Chunks {
   int size, count;
@@ -68,21 +91,21 @@ Chunks pixel_chunks(long hw) {
 }
 
 struct DwGrid {
-  int mtiles, ntiles, slices, per;  // per: k-steps a slice
+  int units, slices, per;  // units: (Cin tile, Cout tile, kernel row); per: steps a slice
+  long steps;
 };
 
-DwGrid dw_grid(int batch, long hw, int cin, int cout) {
+DwGrid dw_grid(int batch, int h, int w, int cin, int cout) {
   DwGrid d;
-  d.mtiles = (cin + WM - 1) / WM;
-  d.ntiles = (cout + WN - 1) / WN;
-  const long ksteps = ((long)batch * hw + WK - 1) / WK;
-  long s = (kTargetBlocks + 9L * d.mtiles * d.ntiles - 1) / (9L * d.mtiles * d.ntiles);
+  d.units = (cin + kDwM - 1) / kDwM * ((cout + kDwN - 1) / kDwN) * 3;
+  d.steps = (long)batch * h * ((w + kDwSeg - 1) / kDwSeg);
+  long s = (kTargetBlocks + d.units - 1) / d.units;
   const long cap = kMaxDwScratch / (9L * cin * cout);
   if (s > cap) s = cap;
-  if (s > ksteps) s = ksteps;
+  if (s > d.steps) s = d.steps;
   if (s < 1) s = 1;
-  d.per = (int)((ksteps + s - 1) / s);
-  d.slices = (int)((ksteps + d.per - 1) / d.per);
+  d.per = (int)((d.steps + s - 1) / s);
+  d.slices = (int)((d.steps + d.per - 1) / d.per);
   return d;
 }
 
@@ -94,7 +117,7 @@ struct Scratch {
 Scratch scratch_layout(float* base, int batch, int h, int w, int cin, int cout) {
   const long hw = (long)h * w;
   const Chunks ch = pixel_chunks(hw);
-  const DwGrid d = dw_grid(batch, hw, cin, cout);
+  const DwGrid d = dw_grid(batch, h, w, cin, cout);
   const long blocks = (long)batch * ch.count;
   Scratch s;
   long o = 0;
@@ -219,110 +242,107 @@ dpre_kernel(const bf16* __restrict__ a, const bf16* __restrict__ g,
   }
 }
 
-// dW partials. grid (mtiles * ntiles, 9, slices): one tap, 128 input x 128
-// output channels, the slice's k-steps of 32 pixels (of all samples).
-// x (B, H, W, Cin), dp (B, H, W, Cout) bf16; pdw (slices, 9, Cin, Cout).
-__global__ void __launch_bounds__(WTHREADS)
-dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dp, float* __restrict__ pdw,
-          int H, int W, long total, int cin, int cout, int ntiles, int per) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Xs = reinterpret_cast<bf16*>(smem);  // [WSTAGES][WK][XS]: pixels x input channels
-  bf16* Ds = Xs + WSTAGES * WK * XS;          // [WSTAGES][WK][DS]: pixels x output channels
+// dW partials. grid (units, slices): unit (Cin tile, Cout tile, kernel row
+// dy), the slice's steps q = (b, row, segment) of 64 pixels. tm_x maps x
+// (B, H, W, Cin) as (8, W, H, Cin / 8, B) with boxes of 8 x 66 x 1 x 16 x 1;
+// tm_d maps dpre (B, H, W, Cout) as (Cout, W, H, B) with boxes of 64 x 64 x
+// 1 x 1 (128B-swizzled). pdw (slices, 9, Cin, Cout).
+__global__ void __launch_bounds__(kDwThreads, 1)
+dw_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_d,
+          float* __restrict__ pdw, int H, int W, int cin, int cout, long steps, int per) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + kAlign - 1) & ~(uint32_t)(kAlign - 1);
+  const uint32_t bar = base + kDwStages * kDwStage;  // full[6], empty[6]
+  auto full = [&](int s) { return bar + 8 * s; };
+  auto empty = [&](int s) { return bar + 8 * (kDwStages + s); };
 
-  const int m0 = (blockIdx.x / ntiles) * WM, n0 = (blockIdx.x % ntiles) * WN;
-  const int tap = blockIdx.y, dy = tap / 3 - 1, dx = tap % 3 - 1;
-  const long hw = (long)H * W;
-  const long k_begin = (long)blockIdx.z * per;
-  const long ksteps = (total + WK - 1) / WK;
-  const int KT = (int)(k_begin + per < ksteps ? per : ksteps - k_begin);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp & 1, wn = warp >> 1;
-  const int g = lane / 4, tq = lane % 4;
+  const int ntiles = (cout + kDwN - 1) / kDwN, segs = (W + kDwSeg - 1) / kDwSeg;
+  const int dy = blockIdx.x % 3, nt = (blockIdx.x / 3) % ntiles, mt = blockIdx.x / 3 / ntiles;
+  const long q0 = (long)blockIdx.y * per;
+  const int count = (int)(q0 + per < steps ? per : steps - q0);
 
-  // the loader: pixel rows lr and lr + 16, 16-byte chunk lc (of 16) of both tiles
-  const int lr = tid >> 4, lc = tid & 15;
-  auto load = [&](int kt, int stage) {
-    bf16* xs = Xs + stage * WK * XS;
-    bf16* ds = Ds + stage * WK * DS;
-    const long q0 = (k_begin + kt) * WK;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = lr + 16 * i;
-      const long q = q0 + r;
-      const bool qok = q < total;
-      const long bi = qok ? q / hw : 0;
-      const long p = q - bi * hw;
-      const int h = (int)(p / W), w = (int)(p - (long)(p / W) * W);
-      const int hh = h + dy, ww = w + dx;
-      const int ci = m0 + lc * 8, co = n0 + lc * 8;
-      const bool okx = qok && ci < cin && hh >= 0 && hh < H && ww >= 0 && ww < W;
-      cp_async16(xs + r * XS + lc * 8,
-                 okx ? x + (((bi * H + hh) * W + ww) * cin + ci) : x, okx);
-      const bool okd = qok && co < cout;
-      cp_async16(ds + r * DS + lc * 8, okd ? dp + (q * cout + co) : dp, okd);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kDwStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);  // one arrival per consumer warp
     }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < WSTAGES - 1; ++s) {
-    if (s < KT) load(s, s);
-    cp_async_commit();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<WSTAGES - 2>();
-    __syncthreads();
-    const int nk = kt + WSTAGES - 1;
-    if (nk < KT) load(nk, nk % WSTAGES);
-    cp_async_commit();
-    const bf16* xs = Xs + (kt % WSTAGES) * WK * XS;
-    const bf16* ds = Ds + (kt % WSTAGES) * WK * DS;
-#pragma unroll
-    for (int ks = 0; ks < WK / 16; ++ks) {
-      uint32_t af[4][4], bfr[2][4];
-      // A = x^T (input channels x pixels): matrices (m 0-7, k 0-7), (m 8-15,
-      // k 0-7), (m 0-7, k 8-15), (m 8-15, k 8-15) of the pixel-major tile
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-        ldsm_x4_t(af[mt], xs + (ks * 16 + (lane & 7) + (lane >> 4) * 8) * XS + wm * 64 +
-                              mt * 16 + ((lane >> 3) & 1) * 8);
-      // B = dpre (pixels x output channels), column-major fragments:
-      // (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7), (n 8-15, k 8-15)
-#pragma unroll
-      for (int np = 0; np < 2; ++np)
-        ldsm_x4_t(bfr[np], ds + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * DS + wn * 32 +
-                               np * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          mma_bf16(acc[mt][nt], af[mt], bfr[nt >> 1][(nt & 1) * 2], bfr[nt >> 1][(nt & 1) * 2 + 1]);
-    }
-  }
-  cp_async_wait<0>();
+  __syncthreads();
 
-  float* out = pdw + ((long)blockIdx.z * 9 + tap) * cin * cout;
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int ci = m0 + wm * 64 + mt * 16 + g + half * 8;
-      if (ci >= cin) continue;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int co = n0 + wn * 32 + nt * 8 + 2 * tq;
-        if (co < cout)
-          *reinterpret_cast<float2*>(out + (long)ci * cout + co) =
-              make_float2(acc[mt][nt][half * 2], acc[mt][nt][half * 2 + 1]);
+  if (threadIdx.x < 128) {
+    // producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      int cs = (int)(q0 % segs), r = (int)((q0 / segs) % H), b = (int)(q0 / segs / H);
+      int st = 0;
+      uint32_t ph = 0;
+      for (int i = 0; i < count; ++i) {
+        mbar_wait(empty(st), ph ^ 1);
+        const uint32_t dst = base + st * kDwStage;
+        mbar_expect_tx(full(st), kDwDBytes + kDwWinBytes);
+        tma_load4(dst, &tm_d, nt * kDwN, cs * kDwSeg, r, b, full(st));
+        tma_load4(dst + kDwDBytes / 2, &tm_d, nt * kDwN + 64, cs * kDwSeg, r, b, full(st));
+        tma_load5(dst + kDwDBytes, &tm_x, 0, cs * kDwSeg - 1, r + dy - 1, mt * (kDwM / 8), b,
+                  full(st));
+        if (++st == kDwStages) st = 0, ph ^= 1;
+        if (++cs == segs) {
+          cs = 0;
+          if (++r == H) r = 0, ++b;
+        }
       }
     }
+  } else {
+    // consumer warpgroups: 64 input channels each
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int wg = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+    float acc[3][64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[0][i] = acc[1][i] = acc[2][i] = 0.f;
+    int st = 0, prev = -1;
+    uint32_t ph = 0;
+    for (int i = 0; i < count; ++i) {
+      mbar_wait(full(st), ph);
+      const uint32_t dp = base + st * kDwStage;
+      const uint32_t win = dp + kDwDBytes + wg * 8 * kDwGroupBytes;
+      wgmma_fence();
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_n128<1, 1>(acc[dx], desc_plain(win + (16 * kk + dx) * 16, 128, kDwGroupBytes),
+                           desc_b128(dp + kk * 2048, kDwDBytes / 2, 1024), 1);
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (lane == 0 && prev >= 0) mbar_arrive(empty(prev));
+      prev = st;
+      if (++st == kDwStages) st = 0, ph ^= 1;
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx) fence_regs<64>(acc[dx]);
+    if (lane == 0 && prev >= 0) mbar_arrive(empty(prev));
+
+    // acc[dx][4 j + 2 h + e]: input channel 16 warp + g + 8 h of the
+    // warpgroup's 64, output channel 8 j + 2 t4 + e of the tile's 128
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx) {
+      float* out = pdw + ((long)blockIdx.y * 9 + dy * 3 + dx) * cin * cout;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int ci = mt * kDwM + wg * 64 + 16 * warp + g + 8 * h;
+        if (ci >= cin) continue;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int co = nt * kDwN + 8 * j + 2 * t4;
+          if (co < cout)
+            *reinterpret_cast<float2*>(out + (long)ci * cout + co) =
+                make_float2(acc[dx][4 * j + 2 * h], acc[dx][4 * j + 2 * h + 1]);
+        }
+      }
+    }
+  }
 }
 
 // dw[o, i, tap] = sum over slices s in order of pdw[s, tap, i, o].
@@ -340,10 +360,39 @@ dw_reduce_kernel(const float* __restrict__ pdw, float* __restrict__ dw, int slic
   dw[((long)o * cin + i) * 9 + tap] = s;
 }
 
+// The wrapper's checks (ops/styled_conv_cuda.py::check_shapes), again.
 bool shape_ok(int batch, int h, int w, int cin, int cout) {
   return batch >= 1 && batch <= 65535 && h >= 1 && w >= 1 && (long)h * w <= (1L << 30) &&
          cin >= 16 && cin % 16 == 0 && cout >= 16 && cout % 16 == 0 && cout <= 2048 &&
-         9L * cin * cout <= kMaxDwScratch;
+         9L * cin * cout <= kMaxDwScratch &&
+         (long)h * w * (cin > cout ? cin : cout) * 2 < (1L << 40);
+}
+
+cudaError_t launch_dw(const bf16* x, const bf16* dpre, float* pdw, float* dw, int batch, int h,
+                      int w, int cin, int cout, cudaStream_t st) {
+  const DwGrid d = dw_grid(batch, h, w, cin, cout);
+  const cuuint64_t xdims[5] = {8, (cuuint64_t)w, (cuuint64_t)h, (cuuint64_t)cin / 8,
+                               (cuuint64_t)batch};
+  const cuuint64_t xstrides[4] = {(cuuint64_t)cin * 2, (cuuint64_t)w * cin * 2, 16,
+                                  (cuuint64_t)h * w * cin * 2};
+  const cuuint32_t xbox[5] = {8, kDwWinCols, 1, kDwM / 8, 1};
+  const cuuint64_t ddims[4] = {(cuuint64_t)cout, (cuuint64_t)w, (cuuint64_t)h, (cuuint64_t)batch};
+  const cuuint64_t dstrides[3] = {(cuuint64_t)cout * 2, (cuuint64_t)w * cout * 2,
+                                  (cuuint64_t)h * w * cout * 2};
+  const cuuint32_t dbox[4] = {64, kDwSeg, 1, 1};
+  CUtensorMap tm_x, tm_d;
+  if (!encode_bf16_map(&tm_x, x, 5, xdims, xstrides, xbox, CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !encode_bf16_map(&tm_d, dpre, 4, ddims, dstrides, dbox, CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDwSmem);
+  if (err != cudaSuccess) return err;
+  dw_kernel<<<dim3(d.units, d.slices), kDwThreads, kDwSmem, st>>>(tm_x, tm_d, pdw, h, w, cin,
+                                                                  cout, d.steps, d.per);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const long len = 9L * cin * cout;
+  dw_reduce_kernel<<<(unsigned)((len + 255) / 256), 256, 0, st>>>(pdw, dw, d.slices, cin, cout);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -360,53 +409,47 @@ long ppst_styled_conv_bwd_scratch_floats(int batch, int h, int w, int cin, int c
 // (B, H, W, Cout) bf16 (the input of the dx conv), sums (B, 4, Cout) float32
 // (rows 2 and 3 are dstyle_scale and dstyle_shift), db (Cout,), dgain (1,)
 // and dw (Cout, Cin, 3, 3) float32. scratch holds
-// ppst_styled_conv_bwd_scratch_floats(...) floats. Device pointers of
+// ppst_styled_conv_bwd_scratch_floats(...) floats. parts: 1 runs passes 1-2
+// (dpre, sums, db, dgain), 2 dW from x and dpre, 3 both. Device pointers of
 // contiguous tensors, 16-byte aligned.
 int ppst_styled_conv_bwd(const void* x, const void* a, const void* g, const void* noise,
                          const void* mean, const void* rstd, const void* s1, void* dpre,
                          void* sums, void* db, void* dgain, void* dw, void* scratch, int batch,
-                         int h, int w, int cin, int cout, void* stream) {
-  if (!shape_ok(batch, h, w, cin, cout)) return (int)cudaErrorInvalidValue;
+                         int h, int w, int cin, int cout, int parts, void* stream) {
+  if (!shape_ok(batch, h, w, cin, cout) || parts < 1 || parts > 3)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const long hw = (long)h * w;
   const Chunks ch = pixel_chunks(hw);
-  const DwGrid d = dw_grid(batch, hw, cin, cout);
   Scratch s = scratch_layout((float*)scratch, batch, h, w, cin, cout);
-  const auto* ab = (const bf16*)a;
-  const auto* gb = (const bf16*)g;
-  const auto* mf = (const float*)mean;
-  const auto* rf = (const float*)rstd;
-  const auto* sf = (const float*)s1;
-  const int cg = cout / 8;
-  const int ry = cg >= kEwThreads ? 1 : kEwThreads / cg;
-  const dim3 block(cg, ry), grid(ch.count, batch);
-  const int red_bytes = ry * cout * 4;
-  const int blocks = batch * ch.count;
   cudaError_t err;
 #define PPST_CHECK(call)                                 \
   if ((err = (call)) != cudaSuccess) return (int)err;
 
-  stats_kernel<<<grid, block, red_bytes, st>>>(ab, gb, mf, rf, sf, s.pstats, hw, cout, ch.size);
-  PPST_CHECK(cudaGetLastError());
-  PPST_CHECK(group_sum(s.pstats, (float*)sums, 4 * cout, ch.count, batch, 1.f, st));
-
-  dpre_kernel<<<grid, block, red_bytes, st>>>(ab, gb, (const bf16*)noise, mf, rf, sf,
-                                              (const float*)sums, 1.f / (float)hw, (bf16*)dpre,
-                                              s.pdb, s.pdg, hw, cout, ch.size);
-  PPST_CHECK(cudaGetLastError());
-  PPST_CHECK(group_sum(s.pdb, (float*)db, cout, blocks, 1, 1.f, st));
-  PPST_CHECK(group_sum(s.pdg, (float*)dgain, 1, blocks, 1, 1.f, st));
-
-  PPST_CHECK(cudaFuncSetAttribute(dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  kDwSmem));
-  dw_kernel<<<dim3(d.mtiles * d.ntiles, 9, d.slices), WTHREADS, kDwSmem, st>>>(
-      (const bf16*)x, (const bf16*)dpre, s.pdw, h, w, (long)batch * hw, cin, cout, d.ntiles,
-      d.per);
-  PPST_CHECK(cudaGetLastError());
-  const long len = 9L * cin * cout;
-  dw_reduce_kernel<<<(unsigned)((len + 255) / 256), 256, 0, st>>>(s.pdw, (float*)dw, d.slices,
-                                                                   cin, cout);
-  PPST_CHECK(cudaGetLastError());
+  if (parts & 1) {
+    const auto* ab = (const bf16*)a;
+    const auto* gb = (const bf16*)g;
+    const auto* mf = (const float*)mean;
+    const auto* rf = (const float*)rstd;
+    const auto* sf = (const float*)s1;
+    const int cg = cout / 8;
+    const int ry = cg >= kEwThreads ? 1 : kEwThreads / cg;
+    const dim3 block(cg, ry), grid(ch.count, batch);
+    const int red_bytes = ry * cout * 4;
+    const int blocks = batch * ch.count;
+    stats_kernel<<<grid, block, red_bytes, st>>>(ab, gb, mf, rf, sf, s.pstats, hw, cout, ch.size);
+    PPST_CHECK(cudaGetLastError());
+    PPST_CHECK(group_sum(s.pstats, (float*)sums, 4 * cout, ch.count, batch, 1.f, st));
+    dpre_kernel<<<grid, block, red_bytes, st>>>(ab, gb, (const bf16*)noise, mf, rf, sf,
+                                                (const float*)sums, 1.f / (float)hw, (bf16*)dpre,
+                                                s.pdb, s.pdg, hw, cout, ch.size);
+    PPST_CHECK(cudaGetLastError());
+    PPST_CHECK(group_sum(s.pdb, (float*)db, cout, blocks, 1, 1.f, st));
+    PPST_CHECK(group_sum(s.pdg, (float*)dgain, 1, blocks, 1, 1.f, st));
+  }
+  if (parts & 2)
+    PPST_CHECK(launch_dw((const bf16*)x, (const bf16*)dpre, s.pdw, (float*)dw, batch, h, w, cin,
+                         cout, st));
 #undef PPST_CHECK
   return 0;
 }

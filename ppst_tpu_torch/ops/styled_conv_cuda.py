@@ -21,7 +21,10 @@ On a CUDA tensor the forward launches the hand-written kernels of
 (whose headers give the designs and their bounds), with dx through
 ``styled_conv.cu``'s plain conv; on a CPU tensor they run
 ``styled_conv3x3_reference`` and ``styled_conv3x3_bwd_reference``, the plain
-PyTorch versions of the same arithmetic. There is no other path.
+PyTorch versions of the same arithmetic. There is no other path. The conv
+core (forward and dx) and dW are TMA-fed, warp-specialised ``wgmma``
+kernels over haloed input windows: a tile of 4 x 64 pixels reads each
+64-channel chunk of x once for all nine taps.
 
 ``styled_conv3x3`` is differentiable through ``_StyledConv3x3``, a
 ``torch.autograd.Function``; dx is computed only when the input needs a
@@ -46,6 +49,8 @@ _EPS = 1e-5
 _SLOPE = 0.2
 _SQRT2 = math.sqrt(2.0)
 _MAX_COUT = 2048  # the backward's elementwise passes hold one thread per 8 channels
+_MAX_DW_FLOATS = 64 << 20  # the backward's float32 dW partials: at least one slice of 9 Cin Cout
+_MAX_BYTES = 1 << 40  # TMA's limit on a tensor map's byte strides: one image of x, dpre or a
 
 
 @functools.lru_cache(maxsize=None)
@@ -64,7 +69,7 @@ def _lib():
 @functools.lru_cache(maxsize=None)
 def _bwd_lib():
     lib = _nvcc.load("styled_conv_bwd")
-    lib.ppst_styled_conv_bwd.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [
+    lib.ppst_styled_conv_bwd.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     lib.ppst_styled_conv_bwd.restype = ctypes.c_int
     lib.ppst_styled_conv_bwd_scratch_floats.argtypes = [ctypes.c_int] * 5
@@ -104,22 +109,40 @@ def styled_conv3x3_reference(x, w, noise, gain, b_total, s1, shift):
     return _forward_reference(x, w, noise, gain, b_total, s1, shift)[0]
 
 
-def _check(x, w, noise, name):
+def check_shapes(x_shape, w_shape, noise_shape, name="styled_conv3x3", backward=False):
+    """Raise ValueError for a shape the kernels do not take, before any
+    launch: x (B, H, W, Cin) and w (Cout, Cin, 3, 3) with Cin and Cout
+    multiples of 16, Cout <= 2048, 1 <= B <= 65535, H W <= 2^30, an image
+    of x or of the output under 2^40 bytes (TMA's stride limit) and, for the
+    backward, 9 Cin Cout float32 partials within 64 Mi; noise (B, H, W, 1)."""
+    x_shape, w_shape = tuple(x_shape), tuple(w_shape)
+    if len(x_shape) != 4:
+        raise ValueError(f"{name}: x must be 4-D (B, H, W, Cin), got {x_shape}")
+    bsz, h, wd, cin = x_shape
+    cout = w_shape[0] if w_shape else 0
+    if (len(w_shape) != 4 or w_shape[1:] != (cin, 3, 3) or cin % 16 or cout % 16
+            or not 16 <= cin or not 16 <= cout <= _MAX_COUT):
+        raise ValueError(f"{name}: the kernel takes x (B, H, W, Cin) and w (Cout, Cin, 3, 3) with "
+                         f"Cin and Cout multiples of 16, Cout <= {_MAX_COUT}; got x "
+                         f"{x_shape}, w {w_shape}")
+    if not 1 <= bsz <= 65535 or h < 1 or wd < 1 or h * wd > 2**30:
+        raise ValueError(f"{name}: shape {x_shape} outside the kernel's range")
+    if h * wd * max(cin, cout) * 2 >= _MAX_BYTES:
+        raise ValueError(f"{name}: an image of {h * wd * max(cin, cout) * 2} bytes is past the "
+                         f"tensor maps' {_MAX_BYTES}")
+    if backward and 9 * cin * cout > _MAX_DW_FLOATS:
+        raise ValueError(f"{name}: 9 Cin Cout = {9 * cin * cout} dW partials exceed "
+                         f"{_MAX_DW_FLOATS}")
+    if tuple(noise_shape) != (bsz, h, wd, 1):
+        raise ValueError(f"{name}: noise must be {(bsz, h, wd, 1)}, got {tuple(noise_shape)}")
+
+
+def _check(x, w, noise, name, backward=False):
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     if x.dtype != torch.bfloat16 or x.dim() != 4:
         raise ValueError(f"{name}: x must be 4-D bfloat16, got {x.dtype} {tuple(x.shape)}")
-    bsz, h, wd, cin = x.shape
-    cout = w.shape[0]
-    if (w.dim() != 4 or tuple(w.shape[1:]) != (cin, 3, 3) or cin % 16 or cout % 16
-            or not 16 <= cout <= _MAX_COUT):
-        raise ValueError(f"{name}: the kernel takes x (B, H, W, Cin) and w (Cout, Cin, 3, 3) with "
-                         f"Cin and Cout multiples of 16, Cout <= {_MAX_COUT}; got x "
-                         f"{tuple(x.shape)}, w {tuple(w.shape)}")
-    if not 1 <= bsz <= 65535 or h * wd > 2**30:
-        raise ValueError(f"{name}: shape {tuple(x.shape)} outside the kernel's range")
-    if tuple(noise.shape) != (bsz, h, wd, 1):
-        raise ValueError(f"{name}: noise must be {(bsz, h, wd, 1)}, got {tuple(noise.shape)}")
+    check_shapes(x.shape, w.shape, noise.shape, name, backward)
     for v in (w, noise):
         if v.device != x.device:
             raise ValueError(f"{name}: an argument is on {v.device}, x on {x.device}")
@@ -202,20 +225,13 @@ def styled_conv3x3_bwd_reference(x, w, noise, a, mean, rstd, s1, g, need_dx=True
     return dx, dw, dgain, db, dscale, dshift
 
 
-def styled_conv3x3_bwd(x, w, noise, a, mean, rstd, s1, g, need_dx=True):
-    """Backward of the fused StyledConv: (dx or None, dw, dgain, db_total,
-    dstyle_scale, dstyle_shift), every gradient float32 but dx (x's dtype);
-    dw in the (Cout, Cin, 3, 3) layout of ``w``.
-
-    ``a``, ``mean`` and ``rstd`` are the forward's residuals, ``s1`` its
-    style_scale + 1, ``g`` the output's cotangent. CPU tensors run the plain
-    version; CUDA tensors launch the kernels (bf16 x, a and g; Cin and Cout
-    multiples of 16), and anything else raises.
-    """
-    if x.device.type == "cpu":
-        return styled_conv3x3_bwd_reference(x, w, noise, a, mean, rstd, s1, g, need_dx)
+def _bwd_parts(x, w, noise, a, mean, rstd, s1, g, need_dx=True):
+    """Check and prepare the backward on CUDA tensors. Returns (run, outs):
+    ``run(part)`` launches passes 1-2 ("dpre": dpre, the sums, db, dgain),
+    "dw" (from x and dpre) or, with ``need_dx``, "dx" (the transposed conv
+    of dpre) on the current stream; outs = (dx or None, dw, dgain, db, sums)."""
     name = "styled_conv3x3_bwd"
-    _check(x, w, noise, name)
+    _check(x, w, noise, name, backward=True)
     bsz, h, wd, cin = x.shape
     cout = w.shape[0]
     for what, v in (("a", a), ("g", g)):
@@ -235,21 +251,48 @@ def styled_conv3x3_bwd(x, w, noise, a, mean, rstd, s1, g, need_dx=True):
     outs = [dpre, sums, torch.empty((cout,), **f32), torch.empty((1,), **f32),
             torch.empty((cout, cin, 3, 3), **f32),
             torch.empty((lib.ppst_styled_conv_bwd_scratch_floats(bsz, h, wd, cin, cout),), **f32)]
-    dx = torch.empty_like(x) if need_dx else None
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ppst_styled_conv_bwd(*[v.data_ptr() for v in ins + outs], bsz, h, wd, cin,
-                                       cout, stream)
+    dx = wt = None
+    if need_dx:
+        dx = torch.empty_like(x)
+        # the transposed conv: dpre correlated with the flipped kernel, in and
+        # out swapped, (9, Cin, Cout)
+        wt = w.detach().to(torch.bfloat16).flip(2, 3).permute(2, 3, 1, 0).contiguous()
+    bufs = ins + outs  # held by run: the kernels read and write them after this returns
+
+    def run(part):
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            if part == "dx":
+                err = _lib().ppst_conv3x3(dpre.data_ptr(), wt.data_ptr(), dx.data_ptr(), bsz, h,
+                                          wd, cout, cin, stream)
+                _nvcc.check(_lib(), err, name)
+                return
+            err = lib.ppst_styled_conv_bwd(*[v.data_ptr() for v in bufs], bsz, h, wd, cin, cout,
+                                           {"dpre": 1, "dw": 2}[part], stream)
         _nvcc.check(lib, err, name)
-        if need_dx:
-            # the transposed conv: dpre correlated with the flipped kernel, in
-            # and out swapped, (9, Cin, Cout)
-            wt = w.detach().to(torch.bfloat16).flip(2, 3).permute(2, 3, 1, 0).contiguous()
-            err = _lib().ppst_conv3x3(dpre.data_ptr(), wt.data_ptr(), dx.data_ptr(), bsz, h, wd,
-                                      cout, cin, stream)
-            _nvcc.check(_lib(), err, name)
+
+    return run, (dx, outs[4], outs[3], outs[2], sums)
+
+
+def styled_conv3x3_bwd(x, w, noise, a, mean, rstd, s1, g, need_dx=True):
+    """Backward of the fused StyledConv: (dx or None, dw, dgain, db_total,
+    dstyle_scale, dstyle_shift), every gradient float32 but dx (x's dtype);
+    dw in the (Cout, Cin, 3, 3) layout of ``w``.
+
+    ``a``, ``mean`` and ``rstd`` are the forward's residuals, ``s1`` its
+    style_scale + 1, ``g`` the output's cotangent. CPU tensors run the plain
+    version; CUDA tensors launch the kernels (bf16 x, a and g; the shapes
+    ``check_shapes`` takes), and anything else raises.
+    """
+    if x.device.type == "cpu":
+        return styled_conv3x3_bwd_reference(x, w, noise, a, mean, rstd, s1, g, need_dx)
+    run, (dx, dw, dgain, db, sums) = _bwd_parts(x, w, noise, a, mean, rstd, s1, g, need_dx)
+    run("dpre")
+    run("dw")
+    if need_dx:
+        run("dx")
     styled_conv3x3_bwd.launches += 1
-    return dx, outs[4], outs[3], outs[2], sums[:, 2].contiguous(), sums[:, 3].contiguous()
+    return dx, dw, dgain, db, sums[:, 2].contiguous(), sums[:, 3].contiguous()
 
 
 class _StyledConv3x3(torch.autograd.Function):
@@ -283,7 +326,7 @@ def styled_conv3x3(x, w, noise, gain, b_total, style_scale, style_shift):
     in x's dtype, differentiable in everything but ``noise``.
 
     CPU tensors run the plain version. CUDA tensors launch the kernels, which
-    take bf16 x with Cin and Cout multiples of 16, and anything else raises.
+    take bf16 x of the shapes ``check_shapes`` takes, and anything else raises.
     """
     args = (x, w, noise, gain, b_total, style_scale + 1.0, style_shift)
     if torch.is_grad_enabled() and any(torch.is_tensor(v) and v.requires_grad for v in args):
