@@ -24,14 +24,19 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
 from ppst_tpu_torch.ops import _nvcc
 
 _EPS = 1e-5
-_CHUNK = 256  # pixels per block of the forward kernel (kChunk in tap.cu)
 _CIN, _COUT = 128, 64
+# the six small gradients in one float32 buffer, each at a 16-byte aligned
+# offset: (name, offset, shape)
+_GRADS = (("dw1", 0, (_COUT, _CIN)), ("db1", 8192, (_COUT,)), ("da1", 8256, (1,)),
+          ("dw2", 8260, (_COUT, _COUT)), ("db2", 12356, (_COUT,)), ("da2", 12420, (1,)))
+_GRAD_FLOATS = 12424
 
 
 @functools.lru_cache(maxsize=None)
@@ -40,6 +45,8 @@ def _lib():
     fn = lib.ppst_fused_tap_fwd
     fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.ppst_fused_tap_fwd_scratch_floats.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.ppst_fused_tap_fwd_scratch_floats.restype = ctypes.c_long
     return lib
 
 
@@ -109,8 +116,13 @@ def fused_tap_1x1_reference(x, w1, b1, a1, w2, b2, a2):
     return _forward_reference(x, w1, b1, a1, w2, b2, a2)[0]
 
 
-def _check_cuda(x, w1, w2, *vectors, name):
-    if x.device.type != "cuda":
+def check_inputs(x, w1, b1, a1, w2, b2, a2, *, t=None, u=None, mr=None, g=None,
+                 name="fused_tap_1x1", device_type="cuda"):
+    """Raise ValueError unless the kernels take these arguments: the forward's
+    (x, w1, b1, a1, w2, b2, a2) and, for the backward, the residuals t, u, mr
+    and the cotangent g (b1 and b2 may then be None). Every CUDA call runs it;
+    ``device_type`` lets the CPU tests check the rules on CPU tensors."""
+    if x.device.type != device_type:
         raise ValueError(f"{name}: unsupported device {x.device}")
     if x.dtype != torch.bfloat16 or x.dim() != 4:
         raise ValueError(f"{name}: x must be 4-D bfloat16, got {x.dtype} {tuple(x.shape)}")
@@ -121,11 +133,23 @@ def _check_cuda(x, w1, w2, *vectors, name):
             f"got x {tuple(x.shape)}, w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)}")
     if not 1 <= bsz <= 65535:
         raise ValueError(f"{name}: batch {bsz} outside 1..65535")
-    for v in (w1, w2) + vectors:
-        if v.device != x.device:
-            raise ValueError(f"{name}: an argument is on {v.device}, x on {x.device}")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError(f"{name}: x must be contiguous and 16-byte aligned")
+    for v in (b1, b2):
+        if v is not None and tuple(v.shape) != (_COUT,):
+            raise ValueError(f"{name}: b1/b2 must be (64,), got {tuple(v.shape)}")
+    if a1.numel() != 1 or a2.numel() != 1:
+        raise ValueError(f"{name}: a1 and a2 must hold one value each")
+    for v_name, v in (("t", t), ("u", u), ("g", g)):
+        if v is not None and (v.dtype != torch.bfloat16 or tuple(v.shape) != (bsz, h, w, _COUT)):
+            raise ValueError(f"{name}: {v_name} must be bfloat16 {(bsz, h, w, _COUT)}, got "
+                             f"{v.dtype} {tuple(v.shape)}")
+    if mr is not None and (mr.dtype != torch.float32
+                           or mr.numel() != bsz * 2 * (_CIN + 2 * _COUT)):
+        raise ValueError(f"{name}: mr must hold the forward's float32 statistics")
+    for v in (w1, b1, a1, w2, b2, a2, t, u, mr, g):
+        if v is not None and v.device != x.device:
+            raise ValueError(f"{name}: an argument is on {v.device}, x on {x.device}")
 
 
 def _forward(x, w1, b1, a1, w2, b2, a2):
@@ -133,37 +157,30 @@ def _forward(x, w1, b1, a1, w2, b2, a2):
     version on the CPU."""
     if x.device.type == "cpu":
         return _forward_reference(x, w1, b1, a1, w2, b2, a2)
-    _check_cuda(x, w1, w2, b1, a1, b2, a2, name="fused_tap_1x1")
-    if tuple(b1.shape) != (_COUT,) or tuple(b2.shape) != (_COUT,):
-        raise ValueError(f"fused_tap_1x1: b1/b2 must be (64,), got {tuple(b1.shape)}, "
-                         f"{tuple(b2.shape)}")
-    if a1.numel() != 1 or a2.numel() != 1:
-        raise ValueError("fused_tap_1x1: a1 and a2 must hold one value each")
-
+    check_inputs(x, w1, b1, a1, w2, b2, a2)
     bsz, h, w, cin = x.shape
     n = h * w
-    nblk = -(-n // _CHUNK)
     dev = x.device
-    args = [
-        x,
-        w1.detach().to(torch.bfloat16).contiguous(), b1.detach().float().contiguous(),
-        a1.detach().float().reshape(1),
-        w2.detach().to(torch.bfloat16).contiguous(), b2.detach().float().contiguous(),
-        a2.detach().float().reshape(1),
-        torch.empty((bsz, h, w, _COUT), dtype=torch.bfloat16, device=dev),  # t
-        torch.empty((bsz, h, w, _COUT), dtype=torch.bfloat16, device=dev),  # u
-        torch.empty((bsz, h, w, _COUT), dtype=torch.bfloat16, device=dev),  # out
-        torch.empty((bsz, nblk, 2, _CIN), dtype=torch.float32, device=dev),  # partial stats
-        torch.empty((bsz * 2 * (_CIN + 2 * _COUT),), dtype=torch.float32, device=dev),  # mr
-    ]
     lib = _lib()
     with torch.cuda.device(dev):
+        # t, u and out apart (callers keep them); mr (the residual statistics)
+        # and the kernel's partial statistics in one buffer
+        t, u, out = (torch.empty((bsz, h, w, _COUT), dtype=torch.bfloat16, device=dev)
+                     for _ in range(3))
+        n_mr = bsz * 2 * (_CIN + 2 * _COUT)
+        buf = torch.empty((n_mr + lib.ppst_fused_tap_fwd_scratch_floats(bsz, n),),
+                          dtype=torch.float32, device=dev)
+        mr = buf[:n_mr]
+        args = [x, w1.detach().to(torch.bfloat16).contiguous(), b1.detach().float().contiguous(),
+                a1.detach().float().reshape(1), w2.detach().to(torch.bfloat16).contiguous(),
+                b2.detach().float().contiguous(), a2.detach().float().reshape(1), t, u, out,
+                buf[n_mr:], mr]
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ppst_fused_tap_fwd(*[a.data_ptr() for a in args], bsz, n, cin,
-                                     _COUT, _COUT, stream)
+        err = lib.ppst_fused_tap_fwd(*[a.data_ptr() for a in args], bsz, n, cin, _COUT, _COUT,
+                                     stream)
     _nvcc.check(lib, err, "fused_tap_1x1")
     fused_tap_1x1.launches += 1
-    return args[9], (args[7], args[8], args[11])
+    return out, (t, u, mr)
 
 
 def fused_tap_1x1_bwd_reference(x, t, u, mr, w1, w2, a1, a2, g, need_dx=True):
@@ -207,28 +224,22 @@ def fused_tap_1x1_bwd(x, t, u, mr, w1, w2, a1, a2, g, need_dx=True):
     """
     if x.device.type == "cpu":
         return fused_tap_1x1_bwd_reference(x, t, u, mr, w1, w2, a1, a2, g, need_dx)
-    _check_cuda(x, w1, w2, t, u, mr, a1, a2, g, name="fused_tap_1x1_bwd")
+    check_inputs(x, w1, None, a1, w2, None, a2, t=t, u=u, mr=mr, g=g, name="fused_tap_1x1_bwd")
     bsz, h, w, _ = x.shape
-    for name, v in (("t", t), ("u", u), ("g", g)):
-        if v.dtype != torch.bfloat16 or tuple(v.shape) != (bsz, h, w, _COUT):
-            raise ValueError(f"fused_tap_1x1_bwd: {name} must be bfloat16 "
-                             f"{(bsz, h, w, _COUT)}, got {v.dtype} {tuple(v.shape)}")
-    if mr.dtype != torch.float32 or mr.numel() != bsz * 2 * (_CIN + 2 * _COUT):
-        raise ValueError("fused_tap_1x1_bwd: mr must hold the forward's float32 statistics")
     n = h * w
     dev = x.device
     lib = _bwd_lib()
-    f32 = dict(dtype=torch.float32, device=dev)
-    outs = [torch.empty((_COUT, _CIN), **f32), torch.empty((_COUT,), **f32),
-            torch.empty((1,), **f32), torch.empty((_COUT, _COUT), **f32),
-            torch.empty((_COUT,), **f32), torch.empty((1,), **f32)]
-    dx = torch.empty_like(x) if need_dx else None
-    scratch = torch.empty((lib.ppst_fused_tap_bwd_scratch_floats(bsz, n),), **f32)
-    ins = [x, t.contiguous(), u.contiguous(), g.contiguous(), mr.contiguous(),
-           w1.detach().to(torch.bfloat16).contiguous(),
-           w2.detach().to(torch.bfloat16).contiguous(),
-           a1.detach().float().reshape(1), a2.detach().float().reshape(1)]
     with torch.cuda.device(dev):
+        # the six small gradients in one buffer, viewed; dx apart
+        grads = torch.empty((_GRAD_FLOATS,), dtype=torch.float32, device=dev)
+        outs = [grads[o : o + math.prod(shape)].view(shape) for _, o, shape in _GRADS]
+        dx = torch.empty_like(x) if need_dx else None
+        scratch = torch.empty((lib.ppst_fused_tap_bwd_scratch_floats(bsz, n),),
+                              dtype=torch.float32, device=dev)
+        ins = [x, t.contiguous(), u.contiguous(), g.contiguous(), mr.contiguous(),
+               w1.detach().to(torch.bfloat16).contiguous(),
+               w2.detach().to(torch.bfloat16).contiguous(),
+               a1.detach().float().reshape(1), a2.detach().float().reshape(1)]
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ppst_fused_tap_bwd(*[v.data_ptr() for v in ins + outs],
                                      dx.data_ptr() if dx is not None else None,
