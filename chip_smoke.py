@@ -47,7 +47,13 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    the grid evaluator on a generated folder of 2 + 2 512px PNGs; ``python -m
    ppst_tpu_torch.train --device cuda`` at 512px, batch 2, then
    ``--continue_train``, then its checkpoint served by ``python -m
-   ppst_tpu_torch.test --checkpoint``.
+   ppst_tpu_torch.test --checkpoint``; then the training CLI in this
+   process at 512px, bf16 with the fused tap, on a generated CelebAMask
+   folder of 520 x 600 images (scale_width_and_crop), with snapshots every 4
+   images and the swap_visualization evaluator at image 8, then
+   ``--continue_train``: its snapshots, grid page and K1/K2 launches, the
+   peak memory around each evaluation, and ``data`` ms/img from the loss
+   log beside the loader's own cost of one batch.
 
 Each phase prints its seconds. Then the script prints the ``kernels`` line
 and, last, the ``ok`` line. Without a CUDA device it exits non-zero before
@@ -209,14 +215,14 @@ def repeat_with_churn(fn, args, k):
 
 
 def kernel_phase(tap_cuda, bw, flops, card):
-    """K1 against its plain version at the serving paths' shapes, an odd
-    shape and 1024px training's (2, 1024, 1024, 128); returns the kernel's
-    record."""
+    """K1 against its plain version at the serving paths' shapes, the
+    swap_visualization evaluator's one image at a time, an odd shape and
+    1024px training's (2, 1024, 1024, 128); returns the kernel's record."""
     g = torch.Generator(device="cuda").manual_seed(0)
     max_err = 0.0
     record = None
-    for shape in [(2, 512, 512, 128), (16, 512, 512, 128), (3, 40, 24, 128),
-                  (2, 1024, 1024, 128)]:
+    for shape in [(2, 512, 512, 128), (1, 512, 512, 128), (16, 512, 512, 128),
+                  (3, 40, 24, 128), (2, 1024, 1024, 128)]:
         x = torch.randn(shape, generator=g, device="cuda").bfloat16()
         w1 = torch.randn((64, 128), generator=g, device="cuda") * 0.1
         b1 = torch.randn((64,), generator=g, device="cuda") * 0.1
@@ -1363,6 +1369,174 @@ def train_cli_phase():
               f"in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def cli_train_eval_phase(tap_cuda, card):
+    """The training CLI in this process, 512px full width, bf16 with the
+    fused tap, batch 2, on a generated CelebAMask folder of 8 images of 520 x
+    600 (``scale_width_and_crop`` scales them to 512 x 591 and crops): 8
+    steps with a snapshot every 4 images and the swap_visualization
+    evaluator (2 images) at image 8, then --continue_train from image 8
+    (iter.txt) to 16. Checks the snapshots, the grid page and K1's and K2's
+    launches; prints the time of each snapshot (and of its PNG write) and
+    evaluation, the memory around each evaluation, ``data`` ms/img from
+    loss_log.txt and the wait of each training step's ``next()`` beside the
+    loader's own cost of one batch. Returns K1's and K2's launches."""
+    import signal
+
+    from PIL import Image
+
+    from ppst_tpu_torch.data import create_dataset
+    from ppst_tpu_torch.train import cli
+
+    from ppst_tpu_torch.data import ConfigurableDataLoader
+
+    rng = np.random.default_rng(2)
+    evals, snapshot_ms, snapshot_png_ms, train_next_ms = [], [], [], []
+    group_evaluate, save_snapshot = cli.GroupEvaluator.evaluate, cli.save_snapshot
+    save_image = cli.save_image  # the snapshot's PNG write
+    loader_next = ConfigurableDataLoader.__next__
+
+    def timed_next(self):
+        t0 = time.perf_counter()
+        out = loader_next(self)
+        if self.phase == "train":
+            train_next_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def timed_png(*args):
+        t0 = time.perf_counter()
+        save_image(*args)
+        snapshot_png_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def timed_snapshot(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_snapshot(*args)
+        torch.cuda.synchronize()
+        snapshot_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def measured_evaluate(self, *args):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = group_evaluate(self, *args)
+        torch.cuda.synchronize()
+        evals.append({"eval_ms": (time.perf_counter() - t0) * 1e3,
+                      "allocated_before_gib": before / 2**30,
+                      "peak_during_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "allocated_after_gib": torch.cuda.memory_allocated() / 2**30})
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for sub in ("img", "mask"):
+            os.makedirs(os.path.join(tmp, sub))
+        for i in range(8):
+            Image.fromarray((rng.random((600, 520, 3)) * 255).astype(np.uint8)).save(
+                os.path.join(tmp, "img", f"{i}.png"))
+            Image.fromarray(rng.integers(0, 3, (600, 520)).astype(np.uint8)).save(
+                os.path.join(tmp, "mask", f"{i}.png"))
+        run = os.path.join(tmp, "ck", "snap")
+        args = ["--device", "cuda", "--name", "snap", "--checkpoints_dir",
+                os.path.join(tmp, "ck"), "--dataset_mode", "celebamask", "--dataroot",
+                os.path.join(tmp, "img"), "--dataroot2", os.path.join(tmp, "mask"),
+                "--crop_size", "512", "--load_size", "512", "--batch_size", "2", "--dtype",
+                "bfloat16", "--fused_tap", "true", "--display_freq", "4",
+                "--evaluation_metrics", "swap_visualization", "--evaluation_freq", "8",
+                "--swap_num_columns", "2", "--swap_num_images", "2", "--total_nimgs", "16",
+                "--save_freq", "8", "--print_freq", "2", "--nThreads", "4"]
+        handlers = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
+        cli.GroupEvaluator.evaluate, cli.save_snapshot = measured_evaluate, timed_snapshot
+        cli.save_image = timed_png
+        ConfigurableDataLoader.__next__ = timed_next
+        launches, secs, peaks = [], [], []
+        try:
+            for extra in ([], ["--continue_train", "true"]):
+                reset_launches()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                cli.main(args + extra)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+                launches.append((tap_cuda.fused_tap_1x1.launches,
+                                 tap_cuda.fused_tap_1x1_bwd.launches))
+                for k in kernel_wrappers():
+                    if k not in (tap_cuda.fused_tap_1x1, tap_cuda.fused_tap_1x1_bwd) \
+                            and k.launches:
+                        raise AssertionError(f"the training CLI launched {k.__name__}")
+                read_standalone_launches()
+        finally:
+            cli.GroupEvaluator.evaluate, cli.save_snapshot = group_evaluate, save_snapshot
+            cli.save_image = save_image
+            ConfigurableDataLoader.__next__ = loader_next
+            for s, h in handlers.items():
+                signal.signal(s, h)
+
+        # 8 steps from image 0 (D, G, ...), then 4 from image 8 (iter.txt):
+        # K1 once a D step and twice a G step (its forward and the remat of
+        # the feature pass), once per image of each evaluation (its feature
+        # extraction), never in a snapshot (no feature branch); K2 once a G
+        # step
+        want = [(4 + 2 * 4 + 2, 4), (2 + 2 * 2 + 2, 2)]
+        if launches != want:
+            raise AssertionError(f"the training CLI launched K1 and K2 {launches} times "
+                                 f"({want} expected)")
+        raw = torch.load(os.path.join(run, "latest_checkpoint.pth"), map_location="cpu",
+                         weights_only=True)
+        if raw["steps"] != 16 or raw["num_d_iters"] != 6:
+            raise AssertionError(f"the resumed run saved steps {raw['steps']} and "
+                                 f"{raw['num_d_iters']} D steps (16 and 6 expected)")
+        snaps = sorted(f for f in os.listdir(os.path.join(run, "snapshots"))
+                       if f.endswith(".png"))
+        shapes = {np.asarray(Image.open(os.path.join(run, "snapshots", f))).shape for f in snaps}
+        want_snaps = [f"{i:09d}.png" for i in (0, 4, 8, 12)]
+        if snaps != want_snaps or shapes != {(4 * 512, 2 * 512, 3)}:
+            raise AssertionError(f"snapshots {snaps} of shapes {shapes}")
+        page = os.path.join(run, "snapshots", "test_0k")
+        (grid_png,) = os.listdir(os.path.join(page, "images"))
+        grid = np.asarray(Image.open(os.path.join(page, "images", grid_png)))
+        cells = [grid[r * 512:(r + 1) * 512, c * 512:(c + 1) * 512]
+                 for r in range(3) for c in range(3) if (r, c) != (0, 0)]
+        if not os.path.exists(os.path.join(page, "index.html")) or grid.shape != (
+                1536, 1536, 3) or any(cell.min() == cell.max() for cell in cells):
+            raise AssertionError(f"the swap grid is {grid.shape} or has a flat cell")
+        with open(os.path.join(run, "loss_log.txt")) as f:
+            log_lines = [line for line in f if line.startswith("(iters:")]
+        data_ms = [float(line.split("data: ")[1].split("ms/img")[0]) for line in log_lines]
+        if len(log_lines) != 12 or "G_styleContmix" not in log_lines[-1]:
+            raise AssertionError(f"loss_log.txt has {len(log_lines)} loss lines")
+
+        # the loader alone: a fresh one of the same options; once its queue is
+        # full, take every batch it holds ready, then time the next ones, each
+        # loaded with nothing else running
+        loader = create_dataset(cli.parse(args))
+        try:
+            t0 = time.perf_counter()
+            while not loader._queue.full() and time.perf_counter() - t0 < 60:
+                time.sleep(0.01)
+            for _ in range(loader.PREFETCH + 1):
+                next(loader)
+            batch_ms = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                next(loader)
+                batch_ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            loader.close()
+    print(json.dumps({
+        "path": "cli train snapshots+eval", "crop": 512, "batch": 2, "dtype": "bfloat16",
+        "fused_tap": True, "run_s": secs, "peak_mem_gib": peaks, "evaluations": evals,
+        "snapshot_ms": snapshot_ms, "snapshot_png_ms": snapshot_png_ms,
+        "data_ms_per_img_logged": data_ms,
+        "train_next_ms_per_step": train_next_ms,
+        "train_next_ms_per_img_p50": statistics.median(train_next_ms) / 2,
+        "loader_batch_ms_alone": batch_ms,
+        "loader_ms_per_img_alone": statistics.median(batch_ms) / 2,
+        "fused_tap_launches": launches,
+        "card": card}), flush=True)
+    return sum(k1 for k1, _ in launches), sum(k2 for _, k2 in launches)
+
+
 def cli_phase():
     from PIL import Image
 
@@ -1510,6 +1684,9 @@ def main():
     phase("reference fused StyledConv", fused_reference_check, PPSTConfig, PPSTModel)
     phase("cli", cli_phase)
     phase("cli train", train_cli_phase)
+    k1_cli, k2_cli = phase("cli train snapshots+eval", cli_train_eval_phase, tap_cuda, card)
+    k1_launches += k1_cli
+    k2_launches += k2_cli
 
     print(json.dumps({"kernels": [
         {"name": "fused_tap_1x1", "route": "cuda", "source": "ppst_tpu_torch/csrc/tap.cu",

@@ -2,16 +2,20 @@
 ``ppst_tpu/data/celebamask_dataset.py``; reference data/CelebAMask_dataset.py):
 the RGB image from ``dataroot``, the 3-class mask (0 background, 1 face,
 2 hair) from ``dataroot2``, one-hot to 3 channels. Image and mask share one
-draw of the random flip, from the item's own RNG. Only the ``resize``
-preprocess of the canonical configuration is ported (and ``scale_shortside``
-with the inference CLI's pipeline)."""
+draw of the item's random transform. An unreadable pair is reported and
+replaced by the item ``item_rng(index)`` picks, as in the JAX package (``replacement``)."""
 
 from __future__ import annotations
 
 import numpy as np
 from PIL import Image
 
-from ppst_tpu_torch.data.base_dataset import BaseDataset, apply_transform, to_tensor
+from ppst_tpu_torch.data.base_dataset import (
+    BaseDataset,
+    apply_transform,
+    sample_transform_params,
+    to_tensor,
+)
 from ppst_tpu_torch.data.image_folder import make_dataset
 
 
@@ -29,12 +33,18 @@ class CelebAMaskDataset(BaseDataset):
         return len(self.A_paths)
 
     def __getitem__(self, index):
-        img = Image.open(self.A_paths[index]).convert("RGB")
-        msk = Image.open(self.B_paths[index]).convert("L")
-        flip = self.draw_flip(index)
-        img = apply_transform(self.opt, img, flip=flip)
-        msk = apply_transform(self.opt, msk, method=Image.NEAREST, flip=flip)
+        a_path = self.A_paths[index % len(self)]
+        b_path = self.B_paths[index % len(self)]
+        try:
+            img = Image.open(a_path).convert("RGB")
+            msk = Image.open(b_path).convert("L")
+        except OSError as err:
+            print(err)
+            return self[self.replacement(index)]
+        params = sample_transform_params(self.opt, img.size, self.item_rng(index))
+        img = apply_transform(self.opt, img, params)
+        msk = apply_transform(self.opt, msk, params, method=Image.NEAREST)
         labels = np.asarray(msk)
         one_hot = np.stack([(labels == i).astype(np.float32) for i in range(self.NUM_CLASSES)],
                            axis=-1)
-        return {"real_A": to_tensor(img), "mask_A": one_hot, "path_A": self.A_paths[index]}
+        return {"real_A": to_tensor(img), "mask_A": one_hot, "path_A": a_path}

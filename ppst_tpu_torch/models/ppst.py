@@ -36,10 +36,13 @@ from ppst_tpu_torch.models.losses import (
 )
 from ppst_tpu_torch.nn.layers import init_weights
 from ppst_tpu_torch.ops import corr_blockwise
-from ppst_tpu_torch.ops.corr import corrm, rselfcorr, warp
+from ppst_tpu_torch.ops.corr import corrm, resize_bilinear, rselfcorr, warp
 from ppst_tpu_torch.ops.corr_warp_cuda import normalize_desc
 from ppst_tpu_torch.ops.guided_filter import guided_filter
 from ppst_tpu_torch.ops.lpips import LPIPS
+from ppst_tpu_torch.util.from_flax import from_flax
+from ppst_tpu_torch.util.msgpack_ckpt import read_checkpoint
+from ppst_tpu_torch.util.util import visualize_spatial_code
 
 
 def resolve_device(device=None) -> torch.device:
@@ -83,8 +86,12 @@ class PPSTModel(nn.Module):
     def load_reference_checkpoint(self, path: str):
         """Load E1/E2/G, and D when the file has it, from a reference
         ``.pth`` (the whole PPSTModel's state_dict, or a ``train.bundle``
-        checkpoint; the RSCL queues and dead members are ignored)."""
-        sd = torch.load(path, map_location="cpu", weights_only=True)
+        checkpoint; the RSCL queues and dead members are ignored) or from
+        a JAX package checkpoint (``.msgpack``, through the weight bridge)."""
+        if str(path).endswith(".msgpack"):
+            sd = from_flax(read_checkpoint(path)["params"])
+        else:
+            sd = torch.load(path, map_location="cpu", weights_only=True)
         if "state_dict" in sd:
             sd = sd["state_dict"]
         own = self.state_dict()
@@ -247,6 +254,16 @@ class PPSTModel(nn.Module):
         rec = self.G(sp, list(gl), generator=generator)
         mix = self.G(sp, [self.swap(g) for g in gl], generator=generator)
         return sp, rec, mix
+
+    def get_visuals_for_snapshot(self, real, generator: Optional[torch.Generator] = None):
+        """Training snapshot visuals {real, layout, rec, mix} of ``real``
+        (reference ppst_model.py:237-248, working): ``layout`` is the
+        host-side PCA of the structure code, resized bilinearly to the
+        image size."""
+        sp, rec, mix = self.snapshot_core(real, generator)
+        layout = torch.from_numpy(visualize_spatial_code(sp)).to(real.device, real.dtype)
+        return {"real": real, "layout": resize_bilinear(layout, real.shape[1:3]), "rec": rec,
+                "mix": mix}
 
     # -- training losses (reference ppst_model.py:105-235) -----------------
     # The batch helpers keep the JAX package's names; in one process its

@@ -6,7 +6,8 @@ optimizers/ppst_optimizer.py).
 * R1 every ``R1_once_every``-th D step, as a second D update (:116-126);
 * no D step at all when ``lambda_GAN`` is 0;
 * ``train_one_step(data_i, steps)`` returns the step's losses as floats,
-  fetched from the device in one transfer.
+  fetched from the device in one transfer;
+* ``get_visuals_for_snapshot(data_i, generator)``: the training snapshot.
 """
 
 from __future__ import annotations
@@ -66,6 +67,14 @@ class PPSTOptimizer:
 
     def train_generator_one_step(self, images, mask):
         return self.steps.g_step(images, mask, self.bundle.generator)
+
+    def get_visuals_for_snapshot(self, data_i, generator: torch.Generator):
+        """The snapshot visuals of the batch's first 4 images (reference
+        ppst_model.py:238-240), in the training dtype, with noise from
+        ``generator``."""
+        images, _ = self.prepare_images(data_i)
+        return self.bundle.model.get_visuals_for_snapshot(images[:4].to(self.steps.dtype),
+                                                          generator)
 
     def save(self, total_steps_so_far):
         self.bundle.save(total_steps_so_far)

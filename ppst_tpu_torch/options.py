@@ -1,8 +1,9 @@
 """CLI pieces shared by ``python -m ppst_tpu_torch.test`` and
-``python -m ppst_tpu_torch.train``: the reference's boolean parsing and the
+``python -m ppst_tpu_torch.train``: the reference's boolean parsing, the
 network-shape flags (ppst_tpu/options/flags.py's names and defaults), which
-a checkpoint's reader must repeat from its training, and ``--fused_styled_conv``
-(a base option of ppst_tpu/options, shared by both CLIs)."""
+a checkpoint's reader must repeat from its training, ``--fused_styled_conv``
+(a base option of ppst_tpu/options, shared by both CLIs) and the loader's
+flags."""
 
 from __future__ import annotations
 
@@ -33,4 +34,21 @@ def add_network_flags(parser):
     a("--fused_styled_conv", type=str2bool, default=False,
       help="fused StyledConv kernel for the generator's non-upsampled 3x3 convs "
            "(bf16; forward and backward)")
+    return parser
+
+
+def add_loader_flags(parser, preprocess: str):
+    """The loader's flags, its transform's and ``--nThreads``
+    (ppst_tpu/options/__init__.py's names), ``--preprocess`` defaulting to
+    ``preprocess``."""
+    a = parser.add_argument
+    a("--preprocess", type=str, default=preprocess,
+      help="keywords of the transform: fixsize, resize, scale_width, scale_shortside, "
+           "scale_longside, zoom, centercrop, crop, trim (e.g. scale_width_and_crop)")
+    a("--load_size", type=int, default=512)
+    a("--crop_size", type=int, default=512)
+    a("--preprocess_crop_padding", type=int, default=None,
+      help="accepted for the JAX package's command lines; nothing reads it")
+    a("--no_flip", action="store_true")
+    a("--nThreads", default=8, type=int, help="threads loading the items of a batch")
     return parser

@@ -11,6 +11,12 @@ reference's loaders, ``ppst_tpu.util.convert_torch`` and
 the D-step count, the four optimizers' state (the reference restarts Adam's
 moments on resume; this does not) and the image count. Writes are atomic: a
 temporary file, then ``os.replace``.
+
+``load`` also reads the JAX package's checkpoints
+(``<N>k_checkpoint.msgpack``, ``latest_checkpoint.msgpack``) through
+``util.msgpack_ckpt`` and the weight bridge: weights, RSCL state, D-step
+count and the optax Adam states. Where both kinds exist it takes the
+``.pth``.
 """
 
 from __future__ import annotations
@@ -22,6 +28,8 @@ import torch
 from ppst_tpu_torch.models.config import PPSTConfig
 from ppst_tpu_torch.models.ppst import PPSTModel, resolve_device
 from ppst_tpu_torch.train.steps import make_optimizers
+from ppst_tpu_torch.util.from_flax import NETS, adam_from_flax, net_from_flax, rscl_from_flax
+from ppst_tpu_torch.util.msgpack_ckpt import read_checkpoint
 
 
 class ModelBundle:
@@ -68,21 +76,28 @@ class ModelBundle:
         skipped, as in the reference (base_model.py:61)."""
         load_dir = (os.path.join(self.opt.checkpoints_dir, pretrained_name) if pretrained_name
                     else self.save_dir)
-        name = ("latest_checkpoint.pth" if resume_iter == "latest"
-                else f"{resume_iter.replace('k', '')}k_checkpoint.pth")
-        path = os.path.join(load_dir, name)
-        raw = torch.load(path, map_location=self.device, weights_only=True)
+        stem = ("latest_checkpoint" if resume_iter == "latest"
+                else f"{resume_iter.replace('k', '')}k_checkpoint")
+        path = os.path.join(load_dir, stem + ".pth")
+        if os.path.exists(path):
+            raw = torch.load(path, map_location=self.device, weights_only=True)
+        elif os.path.exists(os.path.join(load_dir, stem + ".msgpack")):
+            path = os.path.join(load_dir, stem + ".msgpack")
+            raw = self._from_jax(read_checkpoint(path))
+        else:
+            raise FileNotFoundError(f"no {stem}.pth or {stem}.msgpack in {load_dir}")
         sd = raw.get("state_dict", raw)
         skip_d = not getattr(self.opt, "isTrain", True)
         own = self.model.state_dict()
         merged = {}
         for k, v in own.items():
             new = sd.get(k)
-            if (skip_d and k.startswith("D.")) or new is None:
-                if not skip_d:
-                    print(f"[load] missing {k}, keeping initialization")
+            if skip_d and k.startswith("D."):
                 merged[k] = v
-            elif new.numel() != v.numel():
+            elif new is None:
+                print(f"[load] missing {k}, keeping initialization")
+                merged[k] = v
+            elif _squeezed(new.shape) != _squeezed(v.shape):
                 print(f"[load] shape mismatch at {k}: {tuple(v.shape)} vs {tuple(new.shape)}, "
                       "keeping initialization")
                 merged[k] = v
@@ -98,6 +113,52 @@ class ModelBundle:
             except (KeyError, ValueError) as e:
                 print(f"[load] could not restore the {k} optimizer ({e}); restarting moments")
         print(f"Loaded checkpoint from {path}")
+
+    def _from_jax(self, tree) -> dict:
+        """A JAX package checkpoint's tree in the layout of this package's
+        ``.pth``: the weights through the bridge (which leaves out a leaf the
+        tree lacks, for ``load``'s merge to report), the RSCL state, the D-step count and the
+        four optimizers' state dicts."""
+        params = tree.get("params", {})
+        sd = {}
+        for net in NETS:
+            if net in params:
+                sd.update(net_from_flax(net, params[net]))
+        raw = {"state_dict": sd}
+        state = tree.get("state", {})
+        if "rscl" in state:
+            raw["rscl"] = rscl_from_flax(state)
+        if "num_d_iters" in state:
+            raw["num_d_iters"] = int(state["num_d_iters"])
+        if "opt_states" in tree:
+            try:
+                raw["optimizers"] = {k: self._adam_state_dict(k, tree["opt_states"][k])
+                                     for k in self.optimizers}
+                print("[load] optimizer state restored")
+            except (KeyError, ValueError, TypeError) as e:  # structure drift
+                print(f"[load] could not restore optimizer state ({e!r}); restarting moments")
+        return raw
+
+    def _adam_state_dict(self, net: str, opt_state) -> dict:
+        """optax's Adam state of ``net`` as the state dict of its torch Adam,
+        matched by parameter name, never by position."""
+        by_key = adam_from_flax(opt_state, net)
+        state = {}
+        for i, (name, p) in enumerate(getattr(self.model, net).named_parameters()):
+            st = by_key[f"{net}.{name}"]
+            if _squeezed(st["exp_avg"].shape) != _squeezed(p.shape):
+                raise ValueError(f"{net}.{name}: moments of shape {tuple(st['exp_avg'].shape)} "
+                                 f"for a parameter of shape {tuple(p.shape)}")
+            state[i] = {"step": st["step"], "exp_avg": st["exp_avg"].reshape(p.shape),
+                        "exp_avg_sq": st["exp_avg_sq"].reshape(p.shape)}
+        return {"state": state,
+                "param_groups": self.optimizers[net].state_dict()["param_groups"]}
+
+
+def _squeezed(shape) -> tuple:
+    """A shape without its unit dims: the reference stores some biases as
+    (1, C, 1, 1), and JAX some scalars as ()."""
+    return tuple(n for n in shape if n != 1)
 
 
 def create_model(opt) -> ModelBundle:

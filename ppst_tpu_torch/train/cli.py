@@ -2,15 +2,20 @@
 of the JAX package's ``train.py``; reference train.py).
 
 The flags keep the JAX CLI's names and defaults (ppst_tpu/options,
-options/flags.py, the optimizer's, the datasets' and the iteration
-counter's), for every flag this package ports, but for ``--preprocess``,
-which defaults to ``resize``: the canonical configuration's, and the only
-training preprocess ported. Added: ``--device`` (CUDA unless ``--device
-cpu``; it raises when CUDA is asked for and absent).
-Refused with a message: ``--display_freq`` above 0 (training snapshots),
-``--evaluation_metrics`` other than ``none`` (in-training evaluators),
-``--native_io``, ``--num_gpus`` above 1 and the preprocess modes other than
-``resize`` and ``scale_shortside``: none of them is ported yet.
+options/flags.py, the optimizer's, the datasets', the iteration counter's
+and the selected evaluators'), for every flag this package ports. Added:
+``--device`` (CUDA unless ``--device cpu``; it raises when CUDA is asked for
+and absent). Refused with a message: ``--native_io`` and ``--num_gpus``
+above 1, which are not ported yet, and the serving evaluators, which run
+through ``python -m ppst_tpu_torch.test``.
+
+Every ``--display_freq`` images the loop saves a snapshot (real, layout,
+reconstruction and style mix of the batch's first 4 images) as
+``<checkpoints_dir>/<name>/snapshots/<images:09d>.png``; every
+``--evaluation_freq`` images it runs the ``--evaluation_metrics``
+evaluators on the loader, and feeds their metrics to the loss log. Both
+draw their noise from a generator of their own, seeded from ``--seed`` and
+the image count, so turning them on leaves the training losses as they were.
 
 SIGTERM and SIGINT save a checkpoint before the process exits.
 """
@@ -21,12 +26,17 @@ import argparse
 import os
 import signal
 
+import numpy as np
+import torch
+
 from ppst_tpu_torch.data import create_dataset
+from ppst_tpu_torch.evaluation import GroupEvaluator
 from ppst_tpu_torch.optimizers.ppst_optimizer import PPSTOptimizer
-from ppst_tpu_torch.options import add_network_flags, str2bool
+from ppst_tpu_torch.options import add_loader_flags, add_network_flags, str2bool
 from ppst_tpu_torch.train.bundle import create_model
 from ppst_tpu_torch.util.iter_counter import IterationCounter
 from ppst_tpu_torch.util.metric_tracker import MetricTracker
+from ppst_tpu_torch.util.util import save_image, tensor2im, tile_images
 from ppst_tpu_torch.util.visualizer import Visualizer
 
 
@@ -44,15 +54,11 @@ def build_parser():
     a("--num_classes", type=int, default=0)
     a("--seed", type=int, default=0)
     a("--batch_size", type=int, default=2)
-    a("--preprocess", type=str, default="resize", choices=["resize", "scale_shortside"])
-    a("--load_size", type=int, default=512)
-    a("--crop_size", type=int, default=512)
-    a("--no_flip", action="store_true")
+    add_loader_flags(p, "scale_width_and_crop")
     a("--shuffle_dataset", type=str, default=None, choices=("true", "false"))
     a("--dataroot", type=str, default=".")
     a("--dataroot2", type=str, default=".")
     a("--dataset_mode", type=str, default="celebamask", help="celebamask or synthetic")
-    a("--nThreads", default=8, type=int)
     for name, default in (("netG", "StyleGAN2Resnet"), ("netD", "StyleGAN2"),
                           ("netE1", "StyleGAN2Resnet"), ("netE2", "StyleGAN2Resnet")):
         a(f"--{name}", default=default, choices=[default])
@@ -81,7 +87,6 @@ def build_parser():
     a("--native_io", type=str2bool, default=False)
     # iteration counter, evaluation and snapshots
     IterationCounter.modify_commandline_options(p, True)
-    p.set_defaults(display_freq=0)
     a("--evaluation_metrics", default="none")
     # this package
     a("--device", default="cuda")
@@ -90,13 +95,14 @@ def build_parser():
 
 def parse(argv=None):
     parser = build_parser()
-    opt = parser.parse_args(argv)
-    opt.isTrain = True
+    try:
+        GroupEvaluator.modify_commandline_options(parser, True, argv)
+        opt = parser.parse_args(argv)
+        opt.isTrain = True
+        GroupEvaluator(opt)
+    except ValueError as e:
+        parser.error(str(e))
     refused = []
-    if opt.display_freq > 0:
-        refused.append("training snapshots (--display_freq > 0)")
-    if opt.evaluation_metrics != "none":
-        refused.append(f"in-training evaluators (--evaluation_metrics {opt.evaluation_metrics})")
     if opt.native_io:
         refused.append("--native_io")
     if opt.num_gpus != 1:
@@ -114,6 +120,22 @@ def save_options(opt):
             f.write(f"{k:>25}: {v}\n")
 
 
+def side_generator(opt, device, steps: int) -> torch.Generator:
+    """The noise of a snapshot or an evaluation at image count ``steps``:
+    its own stream, so the training's draws stay as they were."""
+    return torch.Generator(device=device).manual_seed(opt.seed * 1000003 + steps)
+
+
+def save_snapshot(opt, optimizer, data_i, steps: int):
+    """Rows real, layout, rec and mix of the batch's first 4 images, tiled."""
+    visuals = optimizer.get_visuals_for_snapshot(
+        data_i, side_generator(opt, optimizer.bundle.device, steps))
+    rows = [tensor2im(v) for v in visuals.values()]
+    grid = tile_images(np.concatenate(rows, 0), picturesPerRow=rows[0].shape[0])
+    save_image(grid, os.path.join(opt.checkpoints_dir, opt.name, "snapshots",
+                                  f"{steps:09d}.png"))
+
+
 def main(argv=None):
     opt = parse(argv)
     bundle = create_model(opt)
@@ -122,6 +144,7 @@ def main(argv=None):
     iter_counter = IterationCounter(opt)
     visualizer = Visualizer(opt)
     metric_tracker = MetricTracker(opt)
+    evaluators = GroupEvaluator(opt)
     optimizer = PPSTOptimizer(opt, bundle)
 
     def save_and_exit(signum, frame):
@@ -132,20 +155,29 @@ def main(argv=None):
     signal.signal(signal.SIGTERM, save_and_exit)
     signal.signal(signal.SIGINT, save_and_exit)
 
-    while not iter_counter.completed_training():
-        with iter_counter.time_measurement("data"):
-            cur_data = next(dataset)
-        with iter_counter.time_measurement("train"):
-            losses = optimizer.train_one_step(cur_data, iter_counter.steps_so_far)
-            metric_tracker.update_metrics(losses, smoothe=True)
-        with iter_counter.time_measurement("maintenance"):
-            if iter_counter.needs_printing():
-                visualizer.print_current_losses(iter_counter.steps_so_far,
-                                                iter_counter.time_measurements,
-                                                metric_tracker.current_metrics())
-            if iter_counter.needs_saving():
-                optimizer.save(iter_counter.steps_so_far)
-            iter_counter.record_one_iteration()
+    try:
+        while not iter_counter.completed_training():
+            with iter_counter.time_measurement("data"):
+                cur_data = next(dataset)
+            with iter_counter.time_measurement("train"):
+                losses = optimizer.train_one_step(cur_data, iter_counter.steps_so_far)
+                metric_tracker.update_metrics(losses, smoothe=True)
+            steps = iter_counter.steps_so_far
+            with iter_counter.time_measurement("maintenance"):
+                if iter_counter.needs_printing():
+                    visualizer.print_current_losses(steps, iter_counter.time_measurements,
+                                                    metric_tracker.current_metrics())
+                if iter_counter.needs_displaying():
+                    save_snapshot(opt, optimizer, cur_data, steps)
+                if iter_counter.needs_saving():
+                    optimizer.save(steps)
+                if iter_counter.needs_evaluation():
+                    metrics = evaluators.evaluate(bundle.model, dataset, steps,
+                                                  side_generator(opt, bundle.device, steps))
+                    metric_tracker.update_metrics(metrics, smoothe=False)
+                iter_counter.record_one_iteration()
+    finally:
+        dataset.close()
 
     optimizer.save(iter_counter.steps_so_far)
     print("Training finished.")

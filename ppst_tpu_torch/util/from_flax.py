@@ -5,7 +5,10 @@ dicts of numpy arrays and returns the ``state_dict`` of ``PPSTModel`` (the
 reference PyTorch key names). It is the inverse of
 ``ppst_tpu/util/convert_torch.py``: conv kernels (kh, kw, I, O) ->
 (O, I, kh, kw), linears (I, O) -> (O, I). ``lpips_from_flax`` and
-``rscl_from_flax`` carry the LPIPS weights and the RSCL state the same way.
+``rscl_from_flax`` carry the LPIPS weights and the RSCL state the same way,
+and ``adam_from_flax`` an optax Adam state (its moments have the weights'
+tree, so they take the weights' transposes). Leaves may be numpy arrays or
+(bfloat16 leaves of ``util.msgpack_ckpt``) torch tensors.
 """
 
 from __future__ import annotations
@@ -16,12 +19,41 @@ import numpy as np
 import torch
 
 
+class _Tree(dict):
+    """A network's flax tree whose missing keys read as empty subtrees, so
+    that the bridge carries every leaf that is there and leaves out the
+    others (the loader's merge reports them)."""
+
+    def __getitem__(self, key):
+        v = self.get(key, {})
+        return _Tree(v) if isinstance(v, dict) else v
+
+
+def _np(x):
+    """A leaf as a numpy array (a bfloat16 tensor as float32); None for a
+    missing leaf (an empty subtree, or None)."""
+    if x is None or isinstance(x, dict):
+        return None
+    return x.float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _transpose(w, axes):
+    """A present leaf of len(axes) dims transposed; any other as it is."""
+    w = _np(w)
+    return np.transpose(w, axes) if w is not None and w.ndim == len(axes) else w
+
+
 def _cw(w):  # conv kernel
-    return np.transpose(np.asarray(w), (3, 2, 0, 1))
+    return _transpose(w, (3, 2, 0, 1))
 
 
 def _lw(w):  # linear weight
-    return np.transpose(np.asarray(w), (1, 0))
+    return _transpose(w, (1, 0))
+
+
+def _as_nchw(w):  # a per-channel bias as (1, C, 1, 1)
+    w = _np(w)
+    return None if w is None else w.reshape(1, -1, 1, 1)
 
 
 class _Out:
@@ -31,7 +63,9 @@ class _Out:
         self.sd, self.prefix = sd, prefix
 
     def __setitem__(self, key, value):
-        self.sd[self.prefix + key] = torch.from_numpy(np.array(value, np.float32))
+        value = _np(value)
+        if value is not None:
+            self.sd[self.prefix + key] = torch.from_numpy(np.array(value, np.float32))
 
     def sub(self, prefix: str) -> "_Out":
         return _Out(self.sd, self.prefix + prefix)
@@ -64,7 +98,7 @@ def _styled_conv(out: _Out, p):
     out["conv.bias"] = p["conv"]["bias"]
     if "noise" in p:
         out["noise.weight"] = p["noise"]["weight"]
-    out["bias"] = np.asarray(p["bias"]).reshape(1, -1, 1, 1)
+    out["bias"] = _as_nchw(p["bias"])
     out["activate.bias"] = p["act_bias"]
     _epilogue(out, p)
 
@@ -90,7 +124,8 @@ def from_e1(out: _Out, p):
 
 
 def _projection_head(out: _Out, p, key: str):
-    out[f"conv1x1_{key}.weight"] = _lw(p["reduce"]["weight"])[:, :, None, None]
+    w = _lw(p["reduce"]["weight"])
+    out[f"conv1x1_{key}.weight"] = None if w is None else w[:, :, None, None]
     out[f"conv1x1_{key}.bias"] = p["reduce"]["bias"]
     for idx, name in (("1", "fc0"), ("3", "fc1"), ("5", "fc2")):
         _linear(out.sub(f"projector{key}.{idx}."), p[name])
@@ -120,7 +155,7 @@ def from_g(out: _Out, p):
     rgb = p["to_rgb"]
     out["ToRGB.conv.weight"] = _cw(rgb["conv"]["weight"])
     out["ToRGB.conv.bias"] = rgb["conv"]["bias"]
-    out["ToRGB.bias"] = np.asarray(rgb["bias"]).reshape(1, -1, 1, 1)
+    out["ToRGB.bias"] = _as_nchw(rgb["bias"])
     _epilogue(out.sub("ToRGB."), rgb)
     for key in (k[3:] for k in p if k.startswith("tap")):
         tap, o = p[f"tap{key}"], out.sub(f"layer{key}.")
@@ -147,16 +182,37 @@ def from_d(out: _Out, p):
     _linear(o.sub("final_linear.1."), core["fc1"])
 
 
+NETS = {"E1": from_e1, "E2": from_e2, "G": from_g, "D": from_d}
+
+
+def net_from_flax(net: str, tree: Dict) -> Dict[str, torch.Tensor]:
+    """One network's flax tree (``net`` in E1, E2, G, D) -> its entries of
+    the ``PPSTModel`` state_dict. A leaf missing from ``tree`` is left out."""
+    sd: Dict[str, torch.Tensor] = {}
+    NETS[net](_Out(sd, f"{net}."), _Tree(tree))
+    return sd
+
+
 def from_flax(params: Dict) -> Dict[str, torch.Tensor]:
     """``{"E1", "E2", "G"[, "D"]}`` flax param trees -> ``PPSTModel``
     state_dict (D's keys only when the tree has D)."""
     sd: Dict[str, torch.Tensor] = {}
-    from_e1(_Out(sd, "E1."), params["E1"])
-    from_e2(_Out(sd, "E2."), params["E2"])
-    from_g(_Out(sd, "G."), params["G"])
-    if "D" in params:
-        from_d(_Out(sd, "D."), params["D"])
+    for net in NETS:
+        if net != "D" or "D" in params:
+            sd.update(net_from_flax(net, params[net]))
     return sd
+
+
+def adam_from_flax(opt_state: Dict, net: str) -> Dict[str, Dict[str, torch.Tensor]]:
+    """One network's optax ``adam`` state, ``{"0": {count, mu, nu}, "1": {}}``
+    (``scale_by_adam``, then the learning rate's empty state), -> the torch
+    Adam state of each of its parameters, by state_dict key: ``step`` =
+    count (the two bias corrections agree), ``exp_avg`` / ``exp_avg_sq`` =
+    mu / nu carried as the weights are."""
+    adam = opt_state["0"]
+    mu, nu = net_from_flax(net, adam["mu"]), net_from_flax(net, adam["nu"])
+    step = float(_np(adam["count"]))
+    return {k: {"step": torch.tensor(step), "exp_avg": mu[k], "exp_avg_sq": nu[k]} for k in mu}
 
 
 def lpips_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
@@ -168,7 +224,7 @@ def lpips_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
         conv = p["net"][f"conv{i}"]
         out[f"net.slice{i + 1}.{tv}.weight"] = _cw(conv["kernel"])
         out[f"net.slice{i + 1}.{tv}.bias"] = conv["bias"]
-        out[f"lin{i}.model.1.weight"] = np.asarray(p[f"lin{i}"]).reshape(1, -1, 1, 1)
+        out[f"lin{i}.model.1.weight"] = _np(p[f"lin{i}"]).reshape(1, -1, 1, 1)
     return sd
 
 
@@ -176,5 +232,5 @@ def rscl_from_flax(state: Dict) -> Dict[str, torch.Tensor]:
     """ppst_tpu's training state -> the RSCL state ``PPSTModel.
     set_rscl_state`` takes."""
     rscl = state["rscl"]
-    return {"queues": torch.from_numpy(np.array(rscl["queues"], np.float32)),
-            "ptrs": torch.from_numpy(np.array(rscl["ptrs"], np.int64))}
+    return {"queues": torch.from_numpy(np.array(_np(rscl["queues"]), np.float32)),
+            "ptrs": torch.from_numpy(np.array(_np(rscl["ptrs"]), np.int64))}

@@ -49,8 +49,15 @@ class IterationCounter:
     def needs_saving(self):
         return (self.steps_so_far % self.opt.save_freq) < self.batch_size
 
+    def needs_evaluation(self):
+        return (self.steps_so_far >= self.opt.evaluation_freq
+                and (self.steps_so_far % self.opt.evaluation_freq) < self.batch_size)
+
     def needs_printing(self):
         return (self.steps_so_far % self.opt.print_freq) < self.batch_size
+
+    def needs_displaying(self):
+        return (self.steps_so_far % self.opt.display_freq) < self.batch_size
 
     def completed_training(self):
         return self.steps_so_far >= self.opt.total_nimgs

@@ -125,5 +125,6 @@ def test_port_imports_no_jax():
     files = sorted((ROOT / "ppst_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
     for f in files:
-        bad = _imported_roots(f) & {"jax", "jaxlib", "flax", "optax", "ppst_tpu"}
+        bad = _imported_roots(f) & {"jax", "jaxlib", "flax", "optax", "msgpack", "ml_dtypes",
+                                     "ppst_tpu"}
         assert not bad, f"{f.relative_to(ROOT)} imports {sorted(bad)}"

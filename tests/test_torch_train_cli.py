@@ -21,6 +21,7 @@ from ppst_tpu.models.ppst import PPSTModel as JaxModel
 from ppst_tpu.util.convert_torch import load_reference_checkpoint
 from ppst_tpu_torch import test as test_cli
 from ppst_tpu_torch.data import ConfigurableDataLoader
+from ppst_tpu_torch.data.base_dataset import sample_transform_params
 from ppst_tpu_torch.data.celebamask_dataset import CelebAMaskDataset
 from ppst_tpu_torch.models.config import PPSTConfig
 from ppst_tpu_torch.models.generator import make_fixed_noise
@@ -159,10 +160,47 @@ def test_train_cli_remat_knobs(trained, tmp_path):
     assert _losses(tmp_path / "run") == _losses(trained)
 
 
+def _loss_lines(run_dir):
+    """The loss values of every line of ``loss_log.txt`` (times dropped)."""
+    return [line.split(") ", 1)[1] for line in (run_dir / "loss_log.txt").read_text().splitlines()
+            if line.startswith("(iters:")]
+
+
+def test_train_cli_snapshots_and_swap_visualization(tmp_path):
+    """--display_freq 2 saves a snapshot at every step and
+    --evaluation_metrics swap_visualization at --evaluation_freq 4 writes its
+    grid page. Both draw noise from generators of their own: the losses and
+    the final weights are those of the same run with the no-op evaluator at
+    the same frequency and a snapshot only at image 0. (Either evaluation
+    switches the loader to its test phase and back, which restarts the
+    training epoch, as in ppst_tpu.)"""
+    cli.main(_args(tmp_path / "a", ["--display_freq", "2", "--evaluation_metrics",
+                                    "swap_visualization", "--evaluation_freq", "4",
+                                    "--swap_num_columns", "2", "--swap_num_images", "2"]))
+    cli.main(_args(tmp_path / "b", ["--evaluation_metrics", "none", "--evaluation_freq", "4"]))
+    run_a, run_b = tmp_path / "a" / "run", tmp_path / "b" / "run"
+    snaps = sorted(p.name for p in (run_a / "snapshots").glob("*.png"))
+    assert snaps == [f"{i:09d}.png" for i in (0, 2, 4, 6)]
+    for name in snaps:  # rows real, layout, rec, mix of the batch's 2 images
+        assert np.asarray(Image.open(run_a / "snapshots" / name)).shape == (256, 128, 3)
+    assert [p.name for p in (run_b / "snapshots").glob("*.png")] == ["000000000.png"]
+    page = run_a / "snapshots" / "test_0k"
+    assert (page / "index.html").is_file()
+    (grid,) = (page / "images").glob("*.png")
+    assert np.asarray(Image.open(grid)).shape == (192, 192, 3)
+    assert _loss_lines(run_a) == _loss_lines(run_b) and len(_loss_lines(run_a)) == 2
+    a = torch.load(run_a / "latest_checkpoint.pth", weights_only=True)
+    b = torch.load(run_b / "latest_checkpoint.pth", weights_only=True)
+    for k, v in a["state_dict"].items():
+        assert torch.equal(v, b["state_dict"][k]), k
+
+
 def test_train_cli_refusals(tmp_path, monkeypatch):
-    """Snapshots and in-training evaluators are refused as not ported; without
-    a card and without --device cpu the CLI raises before writing."""
-    for extra in (["--display_freq", "100"], ["--evaluation_metrics", "simple_swapping"]):
+    """--native_io and --num_gpus 2 are refused as not ported, and the
+    serving evaluators as belonging to the inference CLI; without a card and
+    without --device cpu the CLI raises before writing."""
+    for extra in (["--native_io", "true"], ["--num_gpus", "2"],
+                  ["--evaluation_metrics", "simple_swapping"]):
         with pytest.raises(SystemExit):
             cli.parse(_args(tmp_path, extra))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -194,7 +232,8 @@ def test_celebamask_items_match_jax(tmp_path):
     flip per item: the same arrays as ppst_tpu's dataset, item for item."""
     _write_celebamask(tmp_path)
     opt = cli.parse(["--name", "x", "--dataroot", str(tmp_path / "img"), "--dataroot2",
-                     str(tmp_path / "mask"), "--load_size", "32", "--crop_size", "32"])
+                     str(tmp_path / "mask"), "--load_size", "32", "--crop_size", "32",
+                     "--preprocess", "resize"])
     port, ref = CelebAMaskDataset(opt), JaxCelebAMask(opt)
     flips = set()
     for i in range(len(ref)):
@@ -203,7 +242,7 @@ def test_celebamask_items_match_jax(tmp_path):
         np.testing.assert_array_equal(a["real_A"], b["real_A"])
         np.testing.assert_array_equal(a["mask_A"], b["mask_A"])
         np.testing.assert_array_equal(a["mask_A"].sum(-1), np.ones((32, 32)))
-        flips.add(port.draw_flip(i))
+        flips.add(sample_transform_params(opt, (48, 40), port.item_rng(i))["flip"])
     assert flips == {True, False}  # both branches of the shared flip ran
 
 
@@ -213,7 +252,7 @@ def test_data_at_crop_1024(tmp_path):
     _write_celebamask(tmp_path, n=2)
     opt = cli.parse(["--name", "x", "--dataroot", str(tmp_path / "img"), "--dataroot2",
                      str(tmp_path / "mask"), "--load_size", "1024", "--crop_size", "1024",
-                     "--batch_size", "2", "--nThreads", "2"])
+                     "--batch_size", "2", "--nThreads", "2", "--preprocess", "resize"])
     a, b = CelebAMaskDataset(opt)[1], JaxCelebAMask(opt)[1]
     assert a["real_A"].shape == (1024, 1024, 3) and a["mask_A"].shape == (1024, 1024, 3)
     np.testing.assert_array_equal(a["real_A"], b["real_A"])
