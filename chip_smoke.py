@@ -53,7 +53,18 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    images and the swap_visualization evaluator at image 8, then
    ``--continue_train``: its snapshots, grid page and K1/K2 launches, the
    peak memory around each evaluation, and ``data`` ms/img from the loss
-   log beside the loader's own cost of one batch.
+   log beside the loader's own cost of one batch; then the grid evaluator on
+   a ``.pak`` made by ``python -m ppst_tpu_torch.data.dataset_tools`` from a
+   folder of 2 + 4 512px PNGs (``--dataset_mode lmdb``), its PNGs identical
+   to the same folder's grid; then the training CLI under ``python -m
+   torch.distributed.run --nproc_per_node 1`` on NCCL at 512px, bf16 with the
+   fused tap, on CelebAMask pairs through the native IO library, with
+   background checkpoint saves and ``--profile_dir`` (K1 and K2 counted in
+   the trace of steps 10-14), a background save checked against a blocking
+   one of the same state, a G step's wall alone and with a background save,
+   its copy to the host or its ``torch.save`` in flight (what a save costs
+   the loop), ``--continue_train`` from it, and the loader's ms per image
+   with and without the native library.
 
 Each phase prints its seconds. Then the script prints the ``kernels`` line
 and, last, the ``ok`` line. Without a CUDA device it exits non-zero before
@@ -68,6 +79,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -216,13 +228,15 @@ def repeat_with_churn(fn, args, k):
 
 def kernel_phase(tap_cuda, bw, flops, card):
     """K1 against its plain version at the serving paths' shapes, the
-    swap_visualization evaluator's one image at a time, an odd shape and
+    swap_visualization evaluator's one image at a time, the 4x8 grid's and
+    the packed grid's batched extractions (4 and 6 images), an odd shape and
     1024px training's (2, 1024, 1024, 128); returns the kernel's record."""
     g = torch.Generator(device="cuda").manual_seed(0)
     max_err = 0.0
     record = None
-    for shape in [(2, 512, 512, 128), (1, 512, 512, 128), (16, 512, 512, 128),
-                  (3, 40, 24, 128), (2, 1024, 1024, 128)]:
+    for shape in [(2, 512, 512, 128), (1, 512, 512, 128), (4, 512, 512, 128),
+                  (6, 512, 512, 128), (16, 512, 512, 128), (3, 40, 24, 128),
+                  (2, 1024, 1024, 128)]:
         x = torch.randn(shape, generator=g, device="cuda").bfloat16()
         w1 = torch.randn((64, 128), generator=g, device="cuda") * 0.1
         b1 = torch.randn((64,), generator=g, device="cuda") * 0.1
@@ -1537,6 +1551,356 @@ def cli_train_eval_phase(tap_cuda, card):
     return sum(k1 for k1, _ in launches), sum(k2 for _, k2 in launches)
 
 
+def pak_grid_phase(tap_cuda, card):
+    """The grid evaluator through ``python -m ppst_tpu_torch.test``'s entry
+    point, in this process, at 512px, bf16, fused tap: 2 content and 4 style
+    PNGs packed by ``python -m ppst_tpu_torch.data.dataset_tools``'s entry
+    point and read with ``--dataset_mode lmdb``, then the same folder with
+    ``imagefolder``.
+    The two pages' PNGs must be identical. Returns K1's launches in both."""
+    from PIL import Image
+
+    from ppst_tpu_torch import test as test_cli
+    from ppst_tpu_torch.data import dataset_tools
+
+    rng = np.random.default_rng(3)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "grid")
+        for sub, n in (("content", 2), ("style", 4)):
+            os.makedirs(os.path.join(data, sub))
+            for i in range(n):
+                Image.fromarray((rng.random((512, 512, 3)) * 255).astype(np.uint8)).save(
+                    os.path.join(data, sub, f"{sub}{i}.png"))
+        pak = os.path.join(tmp, "grid.pak")
+        t0 = time.perf_counter()
+        dataset_tools.main(["--input", data, "--output", pak])
+        pack_s = time.perf_counter() - t0
+        pages, launches, secs = {}, [], []
+        for mode, root in (("lmdb", pak), ("imagefolder", data)):
+            out = os.path.join(tmp, mode)
+            reset_launches()
+            t0 = time.perf_counter()
+            test_cli.main(["--device", "cuda", "--dtype", "bfloat16", "--fused_tap", "true",
+                           "--preprocess", "resize", "--load_size", "512", "--crop_size", "512",
+                           "--evaluation_metrics", "content_style_grid_generation",
+                           "--dataset_mode", mode, "--dataroot", root, "--result_dir", out])
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            launches.append(tap_cuda.fused_tap_1x1.launches)
+            for k in kernel_wrappers():
+                if k is not tap_cuda.fused_tap_1x1 and k.launches:
+                    raise AssertionError(f"the grid CLI launched {k.__name__}")
+            read_standalone_launches()
+            pages[mode] = os.path.join(out, "ppst", "results", "contentstylegridgeneration",
+                                       "test_latest", "images")
+        files = sorted(os.listdir(pages["lmdb"]))
+        if files != sorted(os.listdir(pages["imagefolder"])) or len(files) != 1 + 4 + 2 * 5:
+            raise AssertionError(f"the grid from the pack wrote {files}")
+        for f in files:
+            a, b = (np.asarray(Image.open(os.path.join(pages[m], f))) for m in pages)
+            if a.shape != (512, 512, 3) or not np.array_equal(a, b):
+                raise AssertionError(f"{f}: the grid from the pack differs from the folder's")
+        # one batched extraction of the 6 images: K1 once a run
+        if launches != [1, 1]:
+            raise AssertionError(f"the grid CLI launched K1 {launches} times ([1, 1] expected)")
+    print(json.dumps({"path": "cli test grid from .pak", "crop": 512, "contents": 2,
+                      "styles": 4, "pack_s": pack_s, "run_s": dict(zip(pages, secs)),
+                      "pngs_identical": len(files), "fused_tap_launches": launches,
+                      "card": card}), flush=True)
+    return sum(launches)
+
+
+def loader_ms_per_img(opt):
+    """The training loader alone: once its queue is full, take the batches it
+    holds ready, then time the next three, each loaded with nothing else
+    running; the median in ms per image."""
+    from ppst_tpu_torch.data import create_dataset
+
+    loader = create_dataset(opt)
+    try:
+        t0 = time.perf_counter()
+        while not loader._queue.full() and time.perf_counter() - t0 < 60:
+            time.sleep(0.01)
+        for _ in range(loader.PREFETCH + 1):
+            next(loader)
+        batch_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            next(loader)
+            batch_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        loader.close()
+    return statistics.median(batch_ms) / opt.batch_size
+
+
+def torchrun_phase(tap_cuda, card):
+    """The training CLI under ``python -m torch.distributed.run --standalone
+    --nproc_per_node 1`` on NCCL, 512px full width, bf16, fused tap, batch
+    2, on 8 generated CelebAMask pairs of 520 x 600 read through the native
+    IO library (``--preprocess resize --native_io true``): 16 steps with a
+    checkpoint in the background every 8 images and a profile of steps 10-14;
+    K1 and K2 counted in the trace. Then, in this process (K1 and K2 counted
+    by their wrappers), the final
+    checkpoint loaded, a blocking save and a background save of the same
+    state with a training step taken while it is written (the two must be
+    equal; memory around it), a G step's wall alone and with a background
+    save, the save's copy to the host alone or its ``torch.save`` alone on
+    another thread, and ``--continue_train`` from the background
+    checkpoint through the CLI's entry point in this process; the loader
+    alone with ``--native_io`` true and false. Returns K1's and K2's
+    launches (trace and this process)."""
+    import signal
+
+    from PIL import Image
+
+    from ppst_tpu_torch.optimizers.ppst_optimizer import PPSTOptimizer
+    from ppst_tpu_torch.train import cli
+    from ppst_tpu_torch.train.bundle import create_model
+
+    rng = np.random.default_rng(4)
+    with tempfile.TemporaryDirectory() as tmp:
+        for sub in ("img", "mask"):
+            os.makedirs(os.path.join(tmp, sub))
+        for i in range(8):
+            Image.fromarray((rng.random((600, 520, 3)) * 255).astype(np.uint8)).save(
+                os.path.join(tmp, "img", f"{i}.png"))
+            Image.fromarray(rng.integers(0, 3, (600, 520)).astype(np.uint8)).save(
+                os.path.join(tmp, "mask", f"{i}.png"))
+        prof = os.path.join(tmp, "prof")
+        args = ["--num_gpus", "1", "--device", "cuda", "--name", "ddp", "--dataset_mode",
+                "celebamask", "--dataroot", os.path.join(tmp, "img"), "--dataroot2",
+                os.path.join(tmp, "mask"), "--preprocess", "resize", "--load_size", "512",
+                "--crop_size", "512", "--native_io", "true", "--batch_size", "2",
+                "--dtype", "bfloat16", "--fused_tap", "true", "--save_freq", "8",
+                "--print_freq", "2", "--nThreads", "4"]
+        torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                    "--nproc_per_node", "1", "-m", "ppst_tpu_torch.train"]
+        ck = os.path.join(tmp, "ck")
+        t0 = time.perf_counter()
+        run = subprocess.run(torchrun + args + ["--checkpoints_dir", ck, "--total_nimgs", "32",
+                                                "--profile_dir", prof],
+                             cwd=ROOT, timeout=600, capture_output=True, text=True)
+        run_s = time.perf_counter() - t0
+        if run.returncode:
+            raise AssertionError(f"torchrun failed ({run.returncode}):\n"
+                                 f"{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
+        lines = run.stdout.splitlines()
+        if not any("[parallel] rank 0 of 1 on nccl" in ln for ln in lines):
+            raise AssertionError("the torchrun run did not join an NCCL group")
+        loop_ms = [float(ln.split(": ")[1].split(" ms")[0]) for ln in lines
+                   if ln.startswith("Checkpoint of image")]
+        writer_ms = [float(ln.split(" in the background in ")[1].split(" ms")[0])
+                     for ln in lines if " in the background in " in ln]
+        final_ms = [float(ln.rsplit(" in ", 1)[1].split(" ms")[0]) for ln in lines
+                    if ln.startswith("Saved checkpoint at") and "background" not in ln]
+        if len(loop_ms) != 4 or len(writer_ms) != 4 or len(final_ms) != 1:
+            raise AssertionError(f"saves: {loop_ms} on the loop, {writer_ms} written, "
+                                 f"{final_ms} blocking (4, 4 and 1 expected)")
+        with open(os.path.join(ck, "ddp", "loss_log.txt")) as f:
+            log = [ln for ln in f if ln.startswith("(iters:")]
+        losses = [float(tok) for ln in log for tok in ln.split(") ", 1)[1].split()[1::2]]
+        if len(log) != 16 or not np.isfinite(losses).all() or "G_styleContmix" not in log[-1]:
+            raise AssertionError(f"loss_log.txt: {len(log)} lines, finite "
+                                 f"{np.isfinite(losses).all()}")
+        with open(os.path.join(prof, "trace_rank0.json")) as f:
+            events = json.load(f)["traceEvents"]
+        names = [e.get("name", "") for e in events]
+        kernels = [n for e, n in zip(events, names) if e.get("cat") == "kernel"]
+        steps = sorted({int(n.split("#")[1]) for n in names if n.startswith("ProfilerStep#")})
+        if any("moments_kernel" in n for n in kernels):
+            raise AssertionError("the trace holds K6 kernels; the run has no fused StyledConv")
+        # K1 ends each launch with one apply_kernel (csrc/tap.cu, its first
+        # argument a TMA descriptor), K2 starts with one pass_a_kernel; steps
+        # 10-14 are D, G, D, G, D: K1 1 + 2 + 1 + 2 + 1, K2 once a G step
+        k1_names = {n for n in kernels if "::apply_kernel(CUtensorMap" in n}
+        k1_trace = sum(n in k1_names for n in kernels)
+        k2_trace = sum("::pass_a_kernel(" in n for n in kernels)
+        if steps != [10, 11, 12, 13, 14] or (k1_trace, k2_trace) != (7, 2):
+            raise AssertionError(
+                f"the trace holds steps {steps}, K1 {k1_trace} and K2 {k2_trace} times "
+                f"(steps 10-14, 7 and 2 expected); K1's names {sorted(k1_names)}, kernels "
+                f"named apply_kernel {sorted({n for n in kernels if 'apply_kernel' in n})}")
+
+        # a background save and a blocking one of the same state, a step taken
+        # while the background one is written
+        opt = cli.parse(args + ["--checkpoints_dir", ck, "--continue_train", "true"])
+        bundle = create_model(opt)
+        optimizer = PPSTOptimizer(opt, bundle)
+        from ppst_tpu_torch.data import create_dataset
+
+        loader = create_dataset(opt)
+        try:
+            data = next(loader)
+        finally:
+            loader.close()
+        reset_launches()
+        optimizer.train_one_step(data, 32)  # D, G, D, G from here
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        optimizer.train_one_step(data, 34)
+        torch.cuda.synchronize()
+        first_g_step_ms = (time.perf_counter() - t0) * 1e3
+        step_peak = torch.cuda.max_memory_allocated()  # a G step's
+        optimizer.train_one_step(data, 36)
+        blocking_dir, background_dir = os.path.join(tmp, "blocking"), os.path.join(tmp, "bg")
+        bundle.opt.checkpoints_dir = blocking_dir
+        t0 = time.perf_counter()
+        bundle.save(38)
+        blocking_ms = (time.perf_counter() - t0) * 1e3
+        bundle.opt.checkpoints_dir = background_dir
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        bundle.save(38, blocking=False)
+        on_loop_ms = (time.perf_counter() - t0) * 1e3
+        with_clones = torch.cuda.memory_allocated()
+        optimizer.train_one_step(data, 38)  # a G step while the save is written
+        torch.cuda.synchronize()
+        step_with_save_ms = (time.perf_counter() - t0) * 1e3
+        bundle.join_pending_save()
+        save_peak = torch.cuda.max_memory_allocated()
+        after = torch.cuda.memory_allocated()
+        k1_here = tap_cuda.fused_tap_1x1.launches
+        k2_here = tap_cuda.fused_tap_1x1_bwd.launches
+        read_standalone_launches()
+        if (k1_here, k2_here) != (1 + 2 + 1 + 2, 2):
+            raise AssertionError(f"4 steps launched K1 {k1_here} and K2 {k2_here} times")
+        want = torch.load(os.path.join(blocking_dir, "ddp", "0k_checkpoint.pth"),
+                          map_location="cpu", weights_only=True)
+        got = torch.load(os.path.join(background_dir, "ddp", "latest_checkpoint.pth"),
+                         map_location="cpu", weights_only=True)
+        ckpt_bytes = os.path.getsize(os.path.join(blocking_dir, "ddp", "0k_checkpoint.pth"))
+
+        def leaves(tree, prefix=""):
+            if isinstance(tree, dict):
+                for k, v in tree.items():
+                    yield from leaves(v, f"{prefix}/{k}")
+            elif isinstance(tree, (list, tuple)):
+                for i, v in enumerate(tree):
+                    yield from leaves(v, f"{prefix}/{i}")
+            else:
+                yield prefix, tree
+
+        w_leaves, g_leaves = dict(leaves(want)), dict(leaves(got))
+        if w_leaves.keys() != g_leaves.keys():
+            raise AssertionError("the background checkpoint holds other entries")
+        for k, w in w_leaves.items():
+            same = torch.equal(w, g_leaves[k]) if isinstance(w, torch.Tensor) else w == g_leaves[k]
+            if not same:
+                raise AssertionError(f"the background checkpoint differs at {k}")
+
+        # what a background save costs the loop: a G step's wall alone, and
+        # with on another thread the whole save (its clones taken on this
+        # thread, inside the wall), the writer's copy to the host alone (into
+        # the pinned memory that earlier copies left cached, with that cache
+        # emptied first, as in a process's first save, or into pageable
+        # memory), or torch.save alone of the same payload already on the host;
+        # three rounds, the variants in turns
+        from ppst_tpu_torch.train.bundle import _map_tensors
+
+        images, mask = optimizer.prepare_images(data)
+        bundle.opt.checkpoints_dir = os.path.join(tmp, "timing")
+        clones = _map_tensors(bundle._payload(40), lambda t: t.detach().clone())
+
+        def copy_to_host(pinned=True):
+            stream = torch.cuda.Stream()
+            with torch.cuda.stream(stream):
+                _map_tensors(clones, lambda t: t.to("cpu", non_blocking=pinned))
+            stream.synchronize()
+
+        def on_thread(fn):
+            def start():
+                worker = threading.Thread(target=fn)
+                worker.start()
+                return worker.join
+            return start
+
+        def background_save():
+            bundle.save(40, blocking=False)
+            return bundle.join_pending_save
+
+        during = {"alone": None, "background_save": background_save,
+                  "copy_to_host": on_thread(copy_to_host),
+                  "copy_to_host_pageable": on_thread(lambda: copy_to_host(pinned=False)),
+                  "torch_save": on_thread(lambda: torch.save(want, os.path.join(tmp, "h.pth")))}
+        empty_host_cache = getattr(torch._C, "_host_emptyCache", None)  # not in every build
+        if empty_host_cache is not None:
+            during["copy_to_host_fresh_pinned"] = on_thread(copy_to_host)
+        g_step_ms = {k: [] for k in during}
+        done_ms = {k: [] for k in during if during[k]}
+        for _ in range(3):
+            for name, start in during.items():
+                if name == "copy_to_host_fresh_pinned":
+                    empty_host_cache()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                join = start() if start else None
+                optimizer.train_generator_one_step(images, mask)
+                torch.cuda.synchronize()
+                g_step_ms[name].append((time.perf_counter() - t0) * 1e3)
+                if join:
+                    join()
+                    done_ms[name].append((time.perf_counter() - t0) * 1e3)
+        del clones, bundle, optimizer
+        torch.cuda.empty_cache()
+        with open(os.path.join(background_dir, "ddp", "iter.txt"), "w") as f:
+            f.write("38\n")
+        handlers = {sig: signal.getsignal(sig) for sig in (signal.SIGTERM, signal.SIGINT)}
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            cli.main(args + ["--checkpoints_dir", background_dir, "--continue_train", "true",
+                             "--total_nimgs", "42"])
+        finally:
+            for sig, h in handlers.items():
+                signal.signal(sig, h)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        k1_resume = tap_cuda.fused_tap_1x1.launches
+        k2_resume = tap_cuda.fused_tap_1x1_bwd.launches
+        read_standalone_launches()
+        if (k1_resume, k2_resume) != (1 + 2, 1):
+            raise AssertionError(f"the resumed D and G steps launched K1 {k1_resume} and K2 "
+                                 f"{k2_resume} times (3 and 1 expected)")
+        raw = torch.load(os.path.join(background_dir, "ddp", "latest_checkpoint.pth"),
+                         map_location="cpu", weights_only=True)
+        # from image 38 a D and a G step: one D step more than the checkpoint
+        # held (a run that did not load it would count 1)
+        if raw["steps"] != 42 or raw["num_d_iters"] != got["num_d_iters"] + 1:
+            raise AssertionError(f"the resumed run saved image {raw['steps']} after "
+                                 f"{raw['num_d_iters']} D steps (42 and "
+                                 f"{got['num_d_iters'] + 1} expected)")
+
+        loader_ms = {native: loader_ms_per_img(cli.parse(
+            args[:args.index("--native_io")] + ["--native_io", native]
+            + args[args.index("--native_io") + 2:] + ["--checkpoints_dir", ck]))
+            for native in ("true", "false")}
+    gib = 2**30
+    print(json.dumps({
+        "path": "cli train torchrun native+async+profile", "crop": 512, "batch": 2,
+        "dtype": "bfloat16", "fused_tap": True, "world": 1, "backend": "nccl",
+        "run_s": run_s, "resume_s": resume_s,
+        "background_save_ms_on_loop": loop_ms, "background_save_ms_written": writer_ms,
+        "final_blocking_save_ms": final_ms[0],
+        "checkpoint_bytes": ckpt_bytes, "blocking_save_ms": blocking_ms,
+        "background_save_ms_on_loop_here": on_loop_ms,
+        "step_with_background_save_ms": step_with_save_ms,
+        "first_g_step_ms": first_g_step_ms, "g_step_ms": g_step_ms,
+        "in_flight_done_ms": done_ms,
+        "allocated_before_gib": before / gib, "step_peak_gib": step_peak / gib,
+        "allocated_with_clones_gib": with_clones / gib,
+        "step_with_save_peak_gib": save_peak / gib, "allocated_after_gib": after / gib,
+        "loader_ms_per_img_native": loader_ms["true"], "loader_ms_per_img_pil": loader_ms["false"],
+        "losses_finite": len(losses), "trace_steps": steps,
+        "trace_launches": {"fused_tap_1x1": k1_trace, "fused_tap_1x1_bwd": k2_trace},
+        "launches_here": {"fused_tap_1x1": k1_here + k1_resume,
+                          "fused_tap_1x1_bwd": k2_here + k2_resume},
+        "card": card}), flush=True)
+    return k1_trace + k1_here + k1_resume, k2_trace + k2_here + k2_resume
+
+
 def cli_phase():
     from PIL import Image
 
@@ -1687,6 +2051,11 @@ def main():
     k1_cli, k2_cli = phase("cli train snapshots+eval", cli_train_eval_phase, tap_cuda, card)
     k1_launches += k1_cli
     k2_launches += k2_cli
+    k1_launches += phase("cli test grid from .pak", pak_grid_phase, tap_cuda, card)
+    k1_run, k2_run = phase("cli train torchrun native+async+profile", torchrun_phase, tap_cuda,
+                           card)
+    k1_launches += k1_run
+    k2_launches += k2_run
 
     print(json.dumps({"kernels": [
         {"name": "fused_tap_1x1", "route": "cuda", "source": "ppst_tpu_torch/csrc/tap.cu",

@@ -1,5 +1,4 @@
-"""Dataset registry and the loader (counterpart of ``ppst_tpu/data/__init__.py``,
-single process).
+"""Dataset registry and the loader (counterpart of ``ppst_tpu/data/__init__.py``).
 
 ``--dataset_mode foo`` -> module ``ppst_tpu_torch.data.foo_dataset`` -> class
 ``FooDataset``. ``ConfigurableDataLoader`` yields numpy batches: at train time
@@ -10,6 +9,12 @@ unless ``--shuffle_dataset true``. A producer thread loads batches
 threads, so loading overlaps the training step; batch order and content
 are those of the JAX package for every ``--nThreads``. ``set_phase`` stops
 the producer and rebuilds the dataset for another phase.
+
+Under ``torch.distributed`` the training phase's rank ``r`` of ``world``
+loads only its contiguous slice ``idx[i + r·per : i + (r+1)·per]`` of each
+global batch, ``per = batch_size / world`` (the reference's
+DistributedSampler, ``ppst_tpu/data/__init__.py:96-98``): ``--batch_size``
+stays the global batch, and every rank shuffles with the same epoch seed.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from typing import Dict, List
 
 import numpy as np
 
+from ppst_tpu_torch import parallel
 from ppst_tpu_torch.data.base_dataset import BaseDataset
 from ppst_tpu_torch.util.util import copyconf
 
@@ -74,6 +80,11 @@ class ConfigurableDataLoader:
         self.shuffle = True if phase == "train" else getattr(opt, "shuffle_dataset",
                                                              None) == "true"
         self.batch_size = opt.batch_size
+        self.num_shards, self.shard_rank = ((parallel.world_size(), parallel.rank())
+                                            if phase == "train" else (1, 0))
+        if self.batch_size % self.num_shards:
+            raise ValueError(f"batch_size {self.batch_size} must be divisible by the "
+                             f"process count {self.num_shards}")
         self.length = len(self.dataset)
         self.epoch = 0
         self._start_epoch()
@@ -110,6 +121,8 @@ class ConfigurableDataLoader:
         idx = self._epoch_indices()
         bs = self.batch_size
         end = (len(idx) // bs) * bs if self.repeat else len(idx)
+        per = bs // self.num_shards
+        lo = self.shard_rank * per
         n_threads = max(1, int(getattr(self.opt, "nThreads", 1) or 1))
         # items of a batch load on the pool in order (map keeps it), and
         # draw from their own RNGs: the batches do not depend on n_threads
@@ -120,7 +133,7 @@ class ConfigurableDataLoader:
             for i in range(0, end, bs):
                 if self._stop.is_set():
                     return
-                take = idx[i : i + bs]
+                take = idx[i + lo : i + lo + per]
                 items = list(pool.map(ds.__getitem__, take)) if pool else [ds[j] for j in take]
                 self._queue.put(_collate(items))
         except Exception as e:  # surfaced by __next__

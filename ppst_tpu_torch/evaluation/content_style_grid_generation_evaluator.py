@@ -3,8 +3,10 @@
 ``ppst_tpu/evaluation/content_style_grid_generation_evaluator.py``; reference
 evaluation/content_style_grid_generation_evaluator.py).
 
-Dataset items whose path contains "/content/" are structure images; all
-others are styles. Every (content, style) pair is stylized with the content
+Dataset items with a ``content`` folder in their path are structure images;
+all others are styles. The path may be relative, as a pack's keys are
+(``content/a.png``, ``--dataset_mode lmdb``): the JAX package's evaluator
+matches "/content/" only, and so takes every image of a pack for a style. Every (content, style) pair is stylized with the content
 as the guided filter's guide, and the grid is written as an HTML page.
 
 When all images share one shape, extraction runs once per image in batched
@@ -72,7 +74,7 @@ class ContentStyleGridGenerationEvaluator:
                 image = np.asarray(data_i["real_A"][j : j + 1])
                 path = data_i["path_A"][j]
                 name = os.path.splitext(os.path.basename(path))[0]
-                if "/content/" in path:
+                if "/content/" in "/" + path:
                     structure_images[name] = image
                 else:
                     style_images[name] = image

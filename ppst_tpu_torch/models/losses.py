@@ -2,8 +2,9 @@
 queues (counterpart of ``ppst_tpu/models/losses.py``; references
 models/networks/loss.py:11-18 and networks/rscl.py:17-90).
 
-Single-process semantics (one shard): the per-shard forms of the JAX package
-reduce to these at ``n_dev = 1``.
+Each rank computes its losses on its local batch, which makes them the JAX
+package's per-shard forms; ``rscl_enqueue`` takes the keys of every rank,
+gathered in rank order, and the world size, as JAX's takes ``n_dev``.
 """
 
 from __future__ import annotations
@@ -70,11 +71,13 @@ def enqueue_schedule(batch_global: int, n_dev: int):
     return np.asarray(regions * 2, np.int64), np.asarray(samples * 2, np.int64)
 
 
-def rscl_enqueue(state: dict, layer: int, key0_rs, keyw_rs) -> dict:
-    """Ring-buffer write of one scale's six keys from the (3, B, C)
-    region-major stacks (detached by the caller). Returns a new state; the
-    queues stay float32 whatever the keys' dtype."""
-    regions, samples = enqueue_schedule(key0_rs.shape[1], 1)
+def rscl_enqueue(state: dict, layer: int, key0_rs, keyw_rs, world: int = 1) -> dict:
+    """Ring-buffer write of one scale's 6 * ``world`` keys from the (3,
+    B_global, C) region-major stacks of every rank's keys in rank order
+    (detached by the caller), as the reference's six enqueues of
+    ``concat_all_gather``-ed keys. Returns a new state; the queues stay
+    float32 whatever the keys' dtype."""
+    regions, samples = enqueue_schedule(key0_rs.shape[1], world)
     half = len(regions) // 2
     keys = torch.cat([key0_rs[regions[:half], samples[:half]],
                       keyw_rs[regions[half:], samples[half:]]]).to(state["queues"].dtype)

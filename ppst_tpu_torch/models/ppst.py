@@ -22,6 +22,7 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
+from ppst_tpu_torch import parallel
 from ppst_tpu_torch.models.config import PPSTConfig
 from ppst_tpu_torch.models.discriminator import Discriminator
 from ppst_tpu_torch.models.encoder_col import ColorEncoder, batch_swap
@@ -266,18 +267,26 @@ class PPSTModel(nn.Module):
                 "mix": mix}
 
     # -- training losses (reference ppst_model.py:105-235) -----------------
-    # The batch helpers keep the JAX package's names; in one process its
-    # per-shard forms (n_dev > 1) reduce to these.
+    # The batch helpers keep the JAX package's names. Each rank runs them on
+    # its local batch, so they are the per-shard forms of JAX's (``n_dev``
+    # shards): ``swap`` pairs, ``half_batch`` halves and ``shard_concat``
+    # concatenates within the rank's batch, as the reference does per GPU.
+    # D_rec, G_L1_cyc and L1_dist therefore compare only at equal world size.
 
+    # swaps each consecutive pair of the rank's local batch (per shard in JAX)
     swap = staticmethod(batch_swap)
 
     @staticmethod
     def half_batch(x):
-        """The first half of the batch (reference ppst_model.py:129-132)."""
+        """The first half of the rank's local batch (reference
+        ppst_model.py:129-132, per GPU; JAX's ``half_batch(x, n_dev)`` per
+        shard)."""
         return x[: x.shape[0] // 2]
 
     @staticmethod
     def shard_concat(parts):
+        """The parts concatenated along the rank's local batch (JAX's
+        ``shard_concat(parts, n_dev)`` within each shard)."""
         return torch.cat(parts, dim=0)
 
     @staticmethod
@@ -465,6 +474,7 @@ class PPSTModel(nn.Module):
             losses["G_L1_cyc"] = metrics["L1_dist"] * 3.0
 
             styleloss = styleloss2 = 0.0
+            keys = []
             for scale in range(4):
                 sl = slice(3 * scale, 3 * scale + 3)
                 # region-major (3, B, style_dim) stacks
@@ -475,7 +485,14 @@ class PPSTModel(nn.Module):
                     torch.stack(pro_3m[sl]), keyw, key0, queue, cfg.nce_T)
                 styleloss2 = styleloss2 + rscl_loss_sharded(
                     torch.stack(pro_2m[sl]), key0, keyw, queue, cfg.nce_T)
-                new_rscl = rscl_enqueue(new_rscl, scale, key0, keyw)
+                keys += [key0, keyw]
+            # every rank's keys in rank order, in one collective: (8, 3,
+            # B_global, C), the same on every rank, so the queues stay equal
+            world = parallel.world_size()
+            keys = parallel.all_gather_cat(torch.stack(keys).float(), dim=2)
+            for scale in range(4):
+                new_rscl = rscl_enqueue(new_rscl, scale, keys[2 * scale], keys[2 * scale + 1],
+                                        world)
             losses["G_styleContmix"] = styleloss * cfg.lambda_StyleCon
             losses["G_styleContrec"] = styleloss2 * cfg.lambda_StyleCon
 

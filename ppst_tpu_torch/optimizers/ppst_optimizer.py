@@ -6,7 +6,9 @@ optimizers/ppst_optimizer.py).
 * R1 every ``R1_once_every``-th D step, as a second D update (:116-126);
 * no D step at all when ``lambda_GAN`` is 0;
 * ``train_one_step(data_i, steps)`` returns the step's losses as floats,
-  fetched from the device in one transfer;
+  fetched from the device in one transfer; under ``torch.distributed`` they
+  are averaged over the ranks first (one small collective), which makes
+  them the global batch's means that the JAX package logs;
 * ``get_visuals_for_snapshot(data_i, generator)``: the training snapshot.
 """
 
@@ -17,6 +19,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ppst_tpu_torch import parallel
 from ppst_tpu_torch.train.steps import TrainSteps
 
 
@@ -30,6 +33,13 @@ class PPSTOptimizer:
         self.steps = TrainSteps(bundle.model, bundle.optimizers)
 
     def prepare_images(self, data_i):
+        """The batch's images and masks on the device; a training step needs
+        both, so a dataset without masks (``--dataset_mode lmdb``, as in the
+        JAX package) is refused here."""
+        if "mask_A" not in data_i:
+            raise ValueError("the training step needs the batch's masks (mask_A), which this "
+                             "dataset does not give: train on --dataset_mode celebamask or "
+                             "synthetic; lmdb serves the test-time loader only")
         dev = self.bundle.device
         return (torch.as_tensor(data_i["real_A"]).to(dev, non_blocking=True),
                 torch.as_tensor(data_i["mask_A"]).to(dev, non_blocking=True))
@@ -48,7 +58,7 @@ class PPSTOptimizer:
         if not losses:  # --lambda_GAN 0 skips the D step entirely
             return {}
         keys = list(losses)
-        values = torch.stack([losses[k].float() for k in keys]).cpu().numpy()
+        values = parallel.average(torch.stack([losses[k].float() for k in keys])).cpu().numpy()
         out = dict(zip(keys, values))
         if getattr(self.opt, "debug_nan", False):
             bad = [k for k, v in out.items() if not np.isfinite(v).all()]
@@ -72,9 +82,9 @@ class PPSTOptimizer:
         """The snapshot visuals of the batch's first 4 images (reference
         ppst_model.py:238-240), in the training dtype, with noise from
         ``generator``."""
-        images, _ = self.prepare_images(data_i)
+        images = torch.as_tensor(data_i["real_A"]).to(self.bundle.device, non_blocking=True)
         return self.bundle.model.get_visuals_for_snapshot(images[:4].to(self.steps.dtype),
                                                           generator)
 
-    def save(self, total_steps_so_far):
-        self.bundle.save(total_steps_so_far)
+    def save(self, total_steps_so_far, blocking: bool = True):
+        self.bundle.save(total_steps_so_far, blocking=blocking)

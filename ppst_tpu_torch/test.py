@@ -5,7 +5,9 @@
 with ``--input_texture_image``. ``content_style_grid_generation`` (alias
 ``content_style_1t1_generation``) stylizes every content image of
 ``--dataroot`` (those under a ``content/`` folder) with every other image
-there, and writes the grid as an HTML page. Any other value is a
+there, and writes the grid as an HTML page; ``--dataset_mode lmdb`` reads
+them from a ``.pak`` file (``python -m ppst_tpu_torch.data.dataset_tools``),
+whose keys keep the folder's relative paths. Any other value is a
 comma-separated list of loader evaluators (``swap_visualization``, ``none``;
 each may carry a ``train``/``test`` phase prefix), run by a
 ``GroupEvaluator`` on a loader over ``--dataroot``, as the JAX package's
@@ -43,7 +45,9 @@ def build_parser():
     p.add_argument("--input_structure_image", help="simple_swapping's content image")
     p.add_argument("--input_texture_image", help="simple_swapping's style image")
     p.add_argument("--dataroot", default=".", help="the grid's and the loader's image folder")
-    p.add_argument("--dataset_mode", default="imagefolder", choices=["imagefolder"])
+    p.add_argument("--dataset_mode", default="imagefolder", choices=["imagefolder", "lmdb"],
+                   help="imagefolder: --dataroot is a folder; lmdb: a .pak file (or an LMDB "
+                        "directory, where the lmdb module is installed)")
     p.add_argument("--batch_size", type=int, default=2, help="images per loaded batch")
     p.add_argument("--texture_mix_alphas", type=float, nargs="+", default=[1.0],
                    help="weight(s) of the texture image: 1.0 = full swap, "

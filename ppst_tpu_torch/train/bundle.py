@@ -17,14 +17,34 @@ temporary file, then ``os.replace``.
 ``util.msgpack_ckpt`` and the weight bridge: weights, RSCL state, D-step
 count and the optax Adam states. Where both kinds exist it takes the
 ``.pth``.
+
+``save(steps, blocking=False)`` keeps the training loop going while a
+checkpoint is written (the JAX package's ``save(blocking=False)``,
+``ppst_tpu/train/bundle.py:104-147``): the training thread only clones the
+payload (weights, RSCL state, every Adam's moments and step counts, which
+the next ``opt.step()`` changes in place) into fresh buffers on the device;
+a writer thread copies them to the host on a stream of its own, writes the
+file and then moves ``latest_checkpoint.pth``. One save is in flight at a
+time; a writer's error is raised at the next ``save`` or
+``join_pending_save``. The clones hold the checkpoint's size of device
+memory until the writer has copied them to the host.
+
+Under ``torch.distributed`` (``parallel``) every rank builds the model from
+the same seed, and rank 0's parameters, buffers and RSCL queues are
+broadcast after the build and after a load; only rank 0 writes checkpoints.
+Rank 0 draws the training noise from ``--seed`` as a single process does;
+rank ``r`` from a stream of its own.
 """
 
 from __future__ import annotations
 
 import os
+import threading
+import time
 
 import torch
 
+from ppst_tpu_torch import parallel
 from ppst_tpu_torch.models.config import PPSTConfig
 from ppst_tpu_torch.models.ppst import PPSTModel, resolve_device
 from ppst_tpu_torch.train.steps import make_optimizers
@@ -39,8 +59,11 @@ class ModelBundle:
         self.device = resolve_device(getattr(opt, "device", None))
         seed = getattr(opt, "seed", 0)
         self.model = PPSTModel(self.cfg, device=self.device, seed=seed)
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        parallel.broadcast_module(self.model)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            noise_seed(seed, parallel.rank()))
         self.optimizers = make_optimizers(self.model)
+        self._save_thread = self._save_error = None
         for key in ("E1", "E2", "G", "D"):
             net = getattr(self.model, key)
             n = sum(p.numel() for p in net.parameters())
@@ -51,24 +74,82 @@ class ModelBundle:
     def save_dir(self) -> str:
         return os.path.join(self.opt.checkpoints_dir, self.opt.name)
 
-    def save(self, steps: int):
-        os.makedirs(self.save_dir, exist_ok=True)
-        name = f"{steps // 1000}k_checkpoint.pth"
-        path = os.path.join(self.save_dir, name)
-        payload = {
+    def _payload(self, steps: int) -> dict:
+        """What a checkpoint holds, as references to the live tensors."""
+        return {
             "state_dict": self.model.state_dict(),
             "rscl": self.model.rscl_state(),
             "num_d_iters": self.model.num_d_iters,
             "optimizers": {k: o.state_dict() for k, o in self.optimizers.items()},
             "steps": steps,
         }
+
+    def save(self, steps: int, blocking: bool = True):
+        """Write ``<steps // 1000>k_checkpoint.pth`` (rank 0 only), on this
+        thread or, with ``blocking=False``, on a writer thread from clones of
+        the payload (see the module's docstring)."""
+        self.join_pending_save()
+        if not parallel.is_primary():
+            return
+        t0 = time.perf_counter()
+        if blocking:
+            path = self._write(_map_tensors(self._payload(steps), lambda t: t.cpu()), steps)
+            print(f"Saved checkpoint at {path} in {(time.perf_counter() - t0) * 1e3:.1f} ms")
+            return
+        snap = _map_tensors(self._payload(steps), lambda t: t.detach().clone())
+        ready = None
+        if self.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record()
+        # handed over in a box, so that the writer holds the only reference
+        # and frees the clones once they are on the host
+        self._save_thread = threading.Thread(target=self._write_in_background,
+                                             args=([snap], ready, steps), name="ppst-ckpt",
+                                             daemon=True)
+        del snap
+        self._save_thread.start()
+        print(f"Checkpoint of image {steps}: {(time.perf_counter() - t0) * 1e3:.1f} ms on the "
+              "training thread, written in the background")
+
+    def _write_in_background(self, box, ready, steps):
+        try:
+            t0 = time.perf_counter()
+            snap = box.pop()
+            if ready is not None:
+                stream = torch.cuda.Stream(self.device)
+                with torch.cuda.stream(stream):
+                    stream.wait_event(ready)
+                    host = _map_tensors(snap, lambda t: t.to("cpu", non_blocking=True))
+                stream.synchronize()  # before the clones go back to the allocator
+                snap = host
+            path = self._write(snap, steps)
+            print(f"Saved checkpoint at {path} in the background in "
+                  f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+        except Exception as e:  # raised by join_pending_save
+            self._save_error = e
+
+    def join_pending_save(self):
+        """Wait for the save in flight, and raise its writer's error."""
+        if self._save_thread is not None:
+            self._save_thread.join()
+            self._save_thread = None
+        err, self._save_error = self._save_error, None
+        if err is not None:
+            raise RuntimeError("the background checkpoint save failed") from err
+
+    def _write(self, payload: dict, steps: int) -> str:
+        """Write ``payload`` atomically (a temporary file, then ``os.replace``),
+        then point ``latest_checkpoint.pth`` at it."""
+        os.makedirs(self.save_dir, exist_ok=True)
+        name = f"{steps // 1000}k_checkpoint.pth"
+        path = os.path.join(self.save_dir, name)
         tmp = f"{path}.{os.getpid()}.tmp"
         torch.save(payload, tmp)
         os.replace(tmp, path)
         latest = os.path.join(self.save_dir, "latest_checkpoint.pth")
         os.symlink(name, latest + ".tmp")
         os.replace(latest + ".tmp", latest)
-        print(f"Saved checkpoint at {path}")
+        return path
 
     def load(self, resume_iter: str = "latest", pretrained_name: str = None):
         """Tolerant load: a key missing from the file or of another shape
@@ -112,6 +193,7 @@ class ModelBundle:
                 self.optimizers[k].load_state_dict(state)
             except (KeyError, ValueError) as e:
                 print(f"[load] could not restore the {k} optimizer ({e}); restarting moments")
+        parallel.broadcast_module(self.model)
         print(f"Loaded checkpoint from {path}")
 
     def _from_jax(self, tree) -> dict:
@@ -153,6 +235,23 @@ class ModelBundle:
                         "exp_avg_sq": st["exp_avg_sq"].reshape(p.shape)}
         return {"state": state,
                 "param_groups": self.optimizers[net].state_dict()["param_groups"]}
+
+
+def noise_seed(seed: int, rank: int) -> int:
+    """The seed of rank ``rank``'s training noise: ``seed`` itself on rank 0
+    (a single process's stream), a stream of its own on every other rank."""
+    return seed if rank == 0 else seed * 1000003 + rank
+
+
+def _map_tensors(tree, fn):
+    """``tree`` (dicts, lists, tuples) with ``fn`` applied to every tensor."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_tensors(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tensors(v, fn) for v in tree)
+    return tree
 
 
 def _squeezed(shape) -> tuple:

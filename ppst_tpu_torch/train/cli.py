@@ -5,9 +5,25 @@ The flags keep the JAX CLI's names and defaults (ppst_tpu/options,
 options/flags.py, the optimizer's, the datasets', the iteration counter's
 and the selected evaluators'), for every flag this package ports. Added:
 ``--device`` (CUDA unless ``--device cpu``; it raises when CUDA is asked for
-and absent). Refused with a message: ``--native_io`` and ``--num_gpus``
-above 1, which are not ported yet, and the serving evaluators, which run
+and absent). Refused with a message: the serving evaluators, which run
 through ``python -m ppst_tpu_torch.test``.
+
+One process per GPU: ``torchrun --nproc_per_node N -m ppst_tpu_torch.train
+--num_gpus N ...`` (or the JAX package's ``PPST_NUM_PROCESSES``,
+``PPST_PROCESS_ID`` and ``PPST_COORDINATOR``) runs N ranks on NCCL (gloo
+with ``--device cpu``); ``--num_gpus`` is the world size, or 0, and
+``--batch_size`` the global batch, which ``2 * N`` must divide. Each rank
+loads its slice of every batch and the ranks average their gradients
+(``parallel``). Only rank 0 writes checkpoints, ``opt.txt``, ``iter.txt``
+and ``loss_log.txt``; with more than one rank, snapshots and evaluations are
+skipped, as in the JAX package (run ``python -m ppst_tpu_torch.test`` on
+the checkpoints). ``--local-rank`` is accepted and ignored.
+
+Every ``--save_freq`` images the loop saves a checkpoint in the background
+(``ModelBundle.save(blocking=False)``); the last one, and one on SIGTERM or
+SIGINT, wait for it and save on the loop. ``--profile_dir DIR`` writes a
+``torch.profiler`` trace (CPU and CUDA) of the run's steps 10-14 as
+``DIR/trace_rank<r>.json``, for chrome://tracing or Perfetto.
 
 Every ``--display_freq`` images the loop saves a snapshot (real, layout,
 reconstruction and style mix of the batch's first 4 images) as
@@ -23,13 +39,16 @@ SIGTERM and SIGINT save a checkpoint before the process exits.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import signal
 
 import numpy as np
 import torch
 
+from ppst_tpu_torch import parallel
 from ppst_tpu_torch.data import create_dataset
+from ppst_tpu_torch.data.celebamask_dataset import CelebAMaskDataset
 from ppst_tpu_torch.evaluation import GroupEvaluator
 from ppst_tpu_torch.optimizers.ppst_optimizer import PPSTOptimizer
 from ppst_tpu_torch.options import add_loader_flags, add_network_flags, str2bool
@@ -45,7 +64,8 @@ def build_parser():
     a = p.add_argument
     # base options (ppst_tpu/options/__init__.py)
     a("--name", type=str, required=True, help="name of the experiment")
-    a("--num_gpus", type=int, default=1)
+    a("--num_gpus", type=int, default=1,
+      help="the number of ranks the launcher started (torchrun's WORLD_SIZE), or 0")
     a("--checkpoints_dir", type=str, default="./checkpoints/")
     a("--model", type=str, default="ppst", choices=["ppst"])
     a("--optimizer", type=str, default="ppst", choices=["ppst"])
@@ -66,6 +86,9 @@ def build_parser():
     a("--remat_taps", type=str2bool, default=False)
     a("--remat_blocks", type=str2bool, default=False)
     a("--fused_tap", type=str2bool, default=False)
+    a("--local-rank", type=int, default=0, help="accepted for launchers; unused")
+    a("--profile_dir", type=str, default=None,
+      help="write a torch.profiler trace of steps 10-14 to this directory")
     a("--debug_nan", type=str2bool, default=False)
     a("--continue_train", type=str2bool, default=False)
     a("--pretrained_name", type=str, default=None)
@@ -84,7 +107,7 @@ def build_parser():
     a("--R1_once_every", default=16, type=int)
     # datasets
     a("--synthetic_size", default=64, type=int)
-    a("--native_io", type=str2bool, default=False)
+    CelebAMaskDataset.modify_commandline_options(p, True)
     # iteration counter, evaluation and snapshots
     IterationCounter.modify_commandline_options(p, True)
     a("--evaluation_metrics", default="none")
@@ -102,17 +125,17 @@ def parse(argv=None):
         GroupEvaluator(opt)
     except ValueError as e:
         parser.error(str(e))
-    refused = []
-    if opt.native_io:
-        refused.append("--native_io")
-    if opt.num_gpus != 1:
-        refused.append("multi-GPU training (--num_gpus)")
-    if refused:
-        parser.error("not ported yet: " + "; ".join(refused))
+    env = parallel.launch_env()
+    world = env["world"] if env else 1
+    if opt.num_gpus not in (0, world):
+        parser.error(f"--num_gpus {opt.num_gpus} with {world} process(es): launch one "
+                     "process per GPU (torchrun --nproc_per_node N) and pass --num_gpus N")
     return opt
 
 
 def save_options(opt):
+    if not parallel.is_primary():
+        return
     path = os.path.join(opt.checkpoints_dir, opt.name)
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, "opt.txt"), "w") as f:
@@ -136,8 +159,37 @@ def save_snapshot(opt, optimizer, data_i, steps: int):
                                   f"{steps:09d}.png"))
 
 
+def step_profiler(profile_dir):
+    """``--profile_dir``: a ``torch.profiler`` of the run's steps 10-14 (its
+    11th to 15th), as the JAX package's ``jax.profiler`` window, written as
+    ``trace_rank<r>.json``; the loop calls ``step()`` after each step, and
+    the trace names the steps' ranges ``ProfilerStep#10`` to ``#14``. Without
+    a directory, a context that yields None."""
+    if not profile_dir:
+        return contextlib.nullcontext()
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+
+    def export(prof):
+        os.makedirs(profile_dir, exist_ok=True)
+        path = os.path.join(profile_dir, f"trace_rank{parallel.rank()}.json")
+        prof.export_chrome_trace(path)
+        print(f"[profile] steps 10-14 traced to {path}", flush=True)
+
+    return torch.profiler.profile(
+        activities=acts, on_trace_ready=export,
+        schedule=torch.profiler.schedule(wait=9, warmup=1, active=5, repeat=1))
+
+
 def main(argv=None):
     opt = parse(argv)
+    opt.device = str(parallel.init(opt.device))
+    world = parallel.world_size()
+    if opt.batch_size % (2 * world):
+        raise ValueError(f"--batch_size {opt.batch_size} is the global batch: 2 x {world} "
+                         "process(es) must divide it (an even batch on every rank)")
+    primary = parallel.is_primary()
     bundle = create_model(opt)
     save_options(opt)
     dataset = create_dataset(opt)
@@ -155,7 +207,7 @@ def main(argv=None):
     signal.signal(signal.SIGTERM, save_and_exit)
     signal.signal(signal.SIGINT, save_and_exit)
 
-    try:
+    with contextlib.closing(dataset), step_profiler(opt.profile_dir) as profiler:
         while not iter_counter.completed_training():
             with iter_counter.time_measurement("data"):
                 cur_data = next(dataset)
@@ -167,17 +219,22 @@ def main(argv=None):
                 if iter_counter.needs_printing():
                     visualizer.print_current_losses(steps, iter_counter.time_measurements,
                                                     metric_tracker.current_metrics())
-                if iter_counter.needs_displaying():
+                if iter_counter.needs_displaying() and world == 1:
                     save_snapshot(opt, optimizer, cur_data, steps)
                 if iter_counter.needs_saving():
-                    optimizer.save(steps)
+                    optimizer.save(steps, blocking=False)
                 if iter_counter.needs_evaluation():
-                    metrics = evaluators.evaluate(bundle.model, dataset, steps,
-                                                  side_generator(opt, bundle.device, steps))
-                    metric_tracker.update_metrics(metrics, smoothe=False)
+                    if world > 1:
+                        if primary:
+                            print("[eval] skipped under multi-host training; run test.py on "
+                                  "the checkpoints instead")
+                    else:
+                        metrics = evaluators.evaluate(bundle.model, dataset, steps,
+                                                      side_generator(opt, bundle.device, steps))
+                        metric_tracker.update_metrics(metrics, smoothe=False)
                 iter_counter.record_one_iteration()
-    finally:
-        dataset.close()
+            if profiler is not None:
+                profiler.step()
 
     optimizer.save(iter_counter.steps_so_far)
     print("Training finished.")

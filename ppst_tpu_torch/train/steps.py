@@ -7,6 +7,14 @@ compute dtype (cfg.dtype); parameters, optimizer state and the RSCL queues
 stay float32. Gradients are taken only for the networks the step updates
 (``backward(inputs=...)``), as the JAX package differentiates only the
 updated subtree.
+
+Under ``torch.distributed`` each rank runs the steps on its local batch, and
+every update's gradients are averaged over the ranks between ``backward``
+and ``opt.step()`` (``parallel.average_grads``, explicit bucketed
+``all_reduce`` calls: the steps run G and D several times a backward, some
+under ``torch.utils.checkpoint``, which ``DistributedDataParallel``'s hooks
+do not expect). The local batches are equal, so the mean of the ranks'
+gradients is the global batch's, as in the JAX package's sharded step.
 """
 
 from __future__ import annotations
@@ -14,6 +22,8 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
+
+from ppst_tpu_torch import parallel
 
 GE_KEYS = ("G", "E1", "E2")
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -46,6 +56,7 @@ def _backward(loss, params):
 
 def _apply(opt, loss, params):
     _backward(loss, params)
+    parallel.average_grads(params)
     opt.step()
 
 
@@ -89,8 +100,9 @@ class TrainSteps:
     def g_step(self, real, mask, generator: torch.Generator):
         real, mask = self._cast(real, mask)
         losses, metrics, rscl = self.model.generator_losses(real, mask, generator)
-        _backward(sum(losses.values()),
-                  [p for k in GE_KEYS for p in getattr(self.model, k).parameters()])
+        params = [p for k in GE_KEYS for p in getattr(self.model, k).parameters()]
+        _backward(sum(losses.values()), params)
+        parallel.average_grads(params)
         for k in GE_KEYS:
             self.opts[k].step()
         self.model.set_rscl_state(rscl)

@@ -1,12 +1,14 @@
 """Image-count-based iteration counter (counterpart of
 ``ppst_tpu/util/iter_counter.py``; reference util/iter_counter.py): counts
 images, not steps; ``iter.txt`` for resume; EMA-smoothed per-section wall
-times per image."""
+times per image. Under ``torch.distributed`` only rank 0 writes ``iter.txt``."""
 
 from __future__ import annotations
 
 import os
 import time
+
+from ppst_tpu_torch import parallel
 
 
 class IterationCounter:
@@ -40,7 +42,7 @@ class IterationCounter:
                 self.steps_so_far = steps * 1000 if "k" in resume_iter else steps
 
     def record_one_iteration(self):
-        if self.needs_saving():
+        if self.needs_saving() and parallel.is_primary():
             os.makedirs(os.path.dirname(self.iter_record_path), exist_ok=True)
             with open(self.iter_record_path, "w") as f:
                 f.write(f"{self.steps_so_far}\n")

@@ -5,6 +5,7 @@ phase switches (exact), with no producer thread left behind."""
 
 import threading
 
+import jax
 import numpy as np
 import pytest
 from PIL import Image
@@ -13,6 +14,7 @@ from ppst_tpu.data import ConfigurableDataLoader as JaxLoader
 from ppst_tpu.data import base_dataset as jax_bd
 from ppst_tpu.data.celebamask_dataset import CelebAMaskDataset as JaxCelebAMask
 from ppst_tpu.data.imagefolder_dataset import ImageFolderDataset as JaxImageFolder
+from ppst_tpu_torch import parallel
 from ppst_tpu_torch.data import ConfigurableDataLoader
 from ppst_tpu_torch.data import base_dataset as bd
 from ppst_tpu_torch.data.celebamask_dataset import CelebAMaskDataset
@@ -165,6 +167,41 @@ def test_loader_matches_jax_through_phase_switches(tmp_path, threads):
             _same(next(port), next(ref))
     finally:
         port.close()
+    assert not _loader_threads()
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_rank_slices_match_jax_shards(tmp_path, monkeypatch, rank):
+    """Under two ranks, training rank ``rank`` loads its contiguous half of
+    every global batch: the same paths and pixels as ppst_tpu's loader with
+    two processes at the same process index, over two shuffled epochs with
+    random crops and flips; and the half is that of the world-1 batch."""
+    _write_pairs(tmp_path, (SIZES * 3)[:8])
+    opt = _opt(tmp_path, "--batch_size", "4", "--nThreads", "2")
+    whole = ConfigurableDataLoader(opt)
+    try:
+        full = [next(whole) for _ in range(4)]  # 2 batches an epoch
+    finally:
+        whole.close()
+    monkeypatch.setattr(parallel, "world_size", lambda: 2)
+    monkeypatch.setattr(parallel, "rank", lambda: rank)
+    monkeypatch.setattr(jax, "process_count", lambda: 2)
+    monkeypatch.setattr(jax, "process_index", lambda: rank)
+    port, ref = ConfigurableDataLoader(opt), JaxLoader(opt)
+    try:
+        assert (port.num_shards, port.shard_rank) == (ref.num_shards, ref.shard_rank) \
+            == (2, rank)
+        half = slice(2 * rank, 2 * rank + 2)
+        for batch in full:
+            got = next(port)
+            _same(got, next(ref))
+            assert got["path_A"] == batch["path_A"][half]
+            np.testing.assert_array_equal(got["real_A"], batch["real_A"][half])
+            np.testing.assert_array_equal(got["mask_A"], batch["mask_A"][half])
+        assert port.epoch == ref.epoch == 1
+    finally:
+        port.close()
+        ref._stop_worker()
     assert not _loader_threads()
 
 

@@ -196,13 +196,17 @@ def test_train_cli_snapshots_and_swap_visualization(tmp_path):
 
 
 def test_train_cli_refusals(tmp_path, monkeypatch):
-    """--native_io and --num_gpus 2 are refused as not ported, and the
-    serving evaluators as belonging to the inference CLI; without a card and
-    without --device cpu the CLI raises before writing."""
-    for extra in (["--native_io", "true"], ["--num_gpus", "2"],
-                  ["--evaluation_metrics", "simple_swapping"]):
+    """--num_gpus 2 in a process that no launcher started (a world of one) is
+    refused, and the serving evaluators as belonging to the inference CLI; a
+    global batch that 2 x the world size does not divide is refused before
+    anything is written; without a card and without --device cpu the CLI
+    raises before writing."""
+    for extra in (["--num_gpus", "2"], ["--evaluation_metrics", "simple_swapping"]):
         with pytest.raises(SystemExit):
             cli.parse(_args(tmp_path, extra))
+    with pytest.raises(ValueError, match="global batch"):
+        cli.main(_args(tmp_path, ["--batch_size", "3"]))
+    assert not (tmp_path / "run").exists()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     args = _args(tmp_path)
     with pytest.raises(RuntimeError, match="--device cpu"):
