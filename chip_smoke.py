@@ -8,7 +8,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 1. build: prints the card's name and power limit, builds the hand-written
    kernels from ``ppst_tpu_torch/csrc`` (one ``nvcc`` per source, all at
    once) and prints each build time and ptxas's registers, shared memory
-   and spills of K1's, K2's, K3's and K6's kernels;
+   and spills of K1's, K2's, K3's, K6's and K4's kernels;
 2. kernel: every kernel against its plain PyTorch version on the card (TF32
    off) at the main paths' shapes and an odd shape, with its determinism, its
    time, the plain version's time, the time of the one PyTorch call that
@@ -16,7 +16,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    card could take; the fused tap's backward (K2) with and without dx; the
    fused StyledConv (K6) with the unfused StyledConv's time beside it, and
    its backward with and without dx and its split (passes 1-2, dW, dx), each
-   with its share of the bound; the standalone upfirdn2d (K4) and bias +
+   with its share of the bound; the standalone upfirdn2d (K4: each case's
+   route, the record and mid shapes on the TMA route, the cuDNN depthwise
+   conv2d that computes the same function as its library call) and bias +
    leaky ReLU (K5) with the port's composite ops' times beside them;
 3. path: 512px ``stylize`` at full width in bf16 with the fused tap and the
    guided filter, batch 1 then batch 8 pairs; then 1024px ``stylize_fused``
@@ -164,19 +166,20 @@ K6_RECORD = (8, 512, 512, 128, 128)
 # below 1e-5. The bounds leave 2-3x.
 K6_MAX, K6_MEAN, K6_BWD_REL = 0.02, 1e-4, 0.01
 K6_BWD_NAMES = ("dx", "dw", "dgain", "db", "dscale", "dshift")
-# K4 (upfirdn2d) at (shape, dtype, taps, pad, down): G's blur at its largest
-# activation (the record), D's downsample, an odd float32 shape, and
-# asymmetric taps (a kernel that does not flip them fails there) on a shape
-# whose channels take the one-channel path
-K4_CASES = [((8, 512, 512, 128), torch.bfloat16, (1, 3, 3, 1), (2, 1), 1),
-            ((8, 512, 512, 128), torch.bfloat16, (1, 3, 3, 1), (1, 1), 2),
-            ((3, 37, 21, 24), torch.float32, (1, 2, 1), (2, 1), 2),
-            ((2, 19, 33, 20), torch.bfloat16, (1, 2, 3), (1, 2), 1)]
-# K4 against its plain version (both sum in float32, in another order, and
-# round once): float32 within 1e-5 of max(1, max|out|); bf16 within one bf16
-# step (2^-7 relative) of each element plus that float32 bound (outputs near
-# zero, where the two float32 sums differ by more than a bf16 step)
-K4_F32_MAX, K4_BF16_REL = 1e-5, 2.0**-7
+# K4 (upfirdn2d) at (shape, dtype, taps, pad, down) and the route it must
+# take: G's blur at its largest activation (the record), D's downsample, an
+# odd float32 shape (the TMA route's general instance, three taps),
+# asymmetric taps (a kernel that does not flip them fails there) on shapes
+# whose channels take the generic route in bf16 and float32, then two timed
+# mid shapes (G's blur at 128px, D's downsample at 256px). The shapes of at
+# least 128 x 128 are timed. Its tolerance is tools/k4_ab.py's (``within``).
+K4_CASES = [((8, 512, 512, 128), torch.bfloat16, (1, 3, 3, 1), (2, 1), 1, "tma"),
+            ((8, 512, 512, 128), torch.bfloat16, (1, 3, 3, 1), (1, 1), 2, "tma"),
+            ((3, 37, 21, 24), torch.float32, (1, 2, 1), (2, 1), 2, "tma"),
+            ((2, 19, 33, 20), torch.bfloat16, (1, 2, 3), (1, 2), 1, "generic"),
+            ((2, 19, 33, 3), torch.float32, (1, 2, 3), (1, 2), 2, "generic"),
+            ((8, 128, 128, 512), torch.bfloat16, (1, 3, 3, 1), (2, 1), 1, "tma"),
+            ((8, 256, 256, 256), torch.bfloat16, (1, 3, 3, 1), (1, 1), 2, "tma")]
 # K5 (bias + leaky ReLU + gain) at these shapes; the first is the record. The
 # kernel rounds where the plain op rounds: bitwise equal in both dtypes
 # the JAX package's 1024px training mode (tools/bench_train.py --crop 1024
@@ -516,49 +519,69 @@ def styled_conv_bwd_phase(sc, bw, flops, card):
 
 
 def fir_phase(fir, bw, card):
-    """K4 against its plain version (TF32 off), its determinism, and at the
-    512px shapes its time, the plain version's and the port's composite
+    """K4 against its plain version (TF32 off), the route each case took, its
+    determinism (with the allocator churned between calls), and at the timed
+    shapes its time through the wrapper, its device time over back-to-back
+    launches, the plain version's, the library call's (one cuDNN depthwise
+    conv2d, ``tools/k4_ab.py``'s ``library_call``) and the port's composite
     upfirdn2d's (two cuDNN depthwise convolutions) beside the byte bound;
     returns its record at G's blur shape."""
     from ppst_tpu_torch.ops.upfirdn2d import upfirdn2d
+    from ppst_tpu_torch.tools.k4_ab import K4_BF16_REL, K4_F32_MAX, library_call, within
 
     g = torch.Generator(device="cuda").manual_seed(5)
     max_err, record, launches0 = 0.0, None, fir.upfirdn2d_cuda.launches
-    for shape, dt, taps, pad, down in K4_CASES:
+    for shape, dt, taps, pad, down, expected in K4_CASES:
         x = torch.randn(shape, generator=g, device="cuda").to(dt)
         k = np.asarray(taps, np.float32) / sum(taps)
-        got = fir.upfirdn2d_cuda(x, k, down=down, pad=pad)
+
+        def kernel(x):
+            return fir.upfirdn2d_cuda(x, k, down=down, pad=pad)
+
+        routes = dict(fir.upfirdn2d_cuda.route_launches)
+        got = kernel(x)
         torch.cuda.synchronize()
+        route = next(r for r, n in fir.upfirdn2d_cuda.route_launches.items() if n != routes[r])
         want = fir.upfirdn2d_cuda_reference(x, k, down=down, pad=pad)
-        err = (got.float() - want.float()).abs()
-        mx = err.max().item()
-        tol = K4_F32_MAX * max(1.0, want.float().abs().max().item())
-        if dt != torch.float32:
-            tol = K4_BF16_REL * want.float().abs() + tol
-        ok = bool((err <= tol).all().item())
+        ok, mx = within(got, want)
         name = f"{shape} {str(dt).split('.')[-1]} taps {taps} pad {pad} down {down}"
-        print(f"[kernel] upfirdn2d_cuda {name}: max_abs_err {mx}, bitwise "
+        timed = min(shape[1:3]) >= 128
+        print(f"[kernel] upfirdn2d_cuda {name}: route {route}, max_abs_err {mx}, bitwise "
               f"{torch.equal(got, want)} (tolerance: float32 {K4_F32_MAX} max(1, max|out|), "
               f"bf16 {K4_BF16_REL} |out|)", flush=True)
-        if got.shape != want.shape or not torch.isfinite(got.float()).all().item() or not ok:
+        if not ok:
             raise AssertionError(f"upfirdn2d_cuda disagrees with its plain version at {name}")
-        if not torch.equal(got, fir.upfirdn2d_cuda(x, k, down=down, pad=pad)):
+        if route != expected:
+            raise AssertionError(f"upfirdn2d_cuda took the {route} route at {name}, not the "
+                                 f"{expected} route")
+        # the same bits on repeated calls, with the allocator churned between
+        # them (a band handed back to the TMA ring too early shows as a few
+        # wrong rows now and then)
+        if not all(torch.equal(got, repeat_with_churn(kernel, (x,), kk)) for kk in range(4)):
             raise AssertionError(f"upfirdn2d_cuda is not deterministic at {name}")
         max_err = max(max_err, mx)
-        if shape[1] < 512:
+        if not timed:
             continue
         nbytes = (x.numel() + got.numel()) * x.element_size()
         bound_ms = nbytes / bw * 1e3
-        ms, plain_ms = cuda_ms(lambda: fir.upfirdn2d_cuda(x, k, down=down, pad=pad),
+        ms, plain_ms = cuda_ms(lambda: kernel(x),
                                other=lambda: fir.upfirdn2d_cuda_reference(x, k, down=down,
                                                                           pad=pad))
+        device_ms = cuda_ms(lambda: [kernel(x) for _ in range(20)], reps=5) / 20
+        lib_fn, as_nhwc = library_call(x, k, down, pad)
+        lib_err = (as_nhwc(lib_fn()).float() - want.float()).abs().max().item()
+        library_ms = cuda_ms(lib_fn)
         composite_ms = cuda_ms(lambda: upfirdn2d(x, k, down=down, pad=pad))
-        print(f"[kernel] upfirdn2d_cuda {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, composite "
-              f"upfirdn2d (cuDNN depthwise) {composite_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"(bytes: {nbytes / 1e6:.1f} MB at {bw / 1e12} TB/s); {card}", flush=True)
+        print(f"[kernel] upfirdn2d_cuda {name}: {ms:.4f} ms (device, 20 back to back: "
+              f"{device_ms:.4f} ms), plain {plain_ms:.4f} ms, library call (cuDNN depthwise "
+              f"conv2d, max_abs_err {lib_err} against the plain version) {library_ms:.4f} ms, "
+              f"composite upfirdn2d (cuDNN depthwise) {composite_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms (bytes: {nbytes / 1e6:.1f} MB at {bw / 1e12} TB/s), share of "
+              f"the bound {bound_ms / ms:.3f} ({bound_ms / device_ms:.3f} device); {card}",
+              flush=True)
         if record is None:
-            record = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
-                          composite_ms=composite_ms)
+            record = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by="bytes", library_ms=library_ms, composite_ms=composite_ms)
     record.update(max_abs_err=max_err, check_launches=fir.upfirdn2d_cuda.launches - launches0)
     return record
 
@@ -1977,9 +2000,9 @@ def build_phase():
     with ThreadPoolExecutor(len(names)) as pool:
         for name, secs in zip(names, pool.map(build, names)):
             print(f"[build] csrc/{name}.cu built in {secs:.1f} s", flush=True)
-    # K1's, K2's, K3's and K6's registers, shared memory and spills, as ptxas
-    # reported them
-    for name in ("tap", "tap_bwd", "corr_warp", "styled_conv", "styled_conv_bwd"):
+    # K1's, K2's, K3's, K6's and K4's registers, shared memory and spills, as
+    # ptxas reported them
+    for name in ("tap", "tap_bwd", "corr_warp", "styled_conv", "styled_conv_bwd", "upfirdn2d"):
         for line in _nvcc.ptxas_summary(_nvcc.build(_nvcc.PKG / "csrc" / f"{name}.cu")):
             print(f"[build] ptxas {name}.cu {line}", flush=True)
     tap_cuda._lib()
@@ -2089,7 +2112,8 @@ def main():
          "launches": STANDALONE_PATH_LAUNCHES["upfirdn2d_cuda"],
          "check_launches": k4["check_launches"],
          "max_abs_err": k4["max_abs_err"], "ms": k4["ms"], "plain_ms": k4["plain_ms"],
-         "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"], "library_ms": None},
+         "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
+         "library_ms": k4["library_ms"]},
         {"name": "fused_leaky_relu_cuda", "route": "cuda",
          "source": "ppst_tpu_torch/csrc/fused_act.cu",
          "replaces": "ppst_tpu/ops/fused_act_pallas.py:24",

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels
-// (corr_warp.cu, styled_conv.cu, styled_conv_bwd.cu): mbarriers, TMA tensor
-// loads, wgmma shared-memory descriptors, the wgmma products these kernels
-// issue, and the host-side lookup of cuTensorMapEncodeTiled.
+// (corr_warp.cu, styled_conv.cu, styled_conv_bwd.cu, tap_common.cuh) and the
+// TMA route of upfirdn2d.cu: mbarriers, TMA tensor loads, wgmma shared-memory
+// descriptors, the wgmma products these kernels issue, and the host-side
+// lookup of cuTensorMapEncodeTiled.
 //
 // Descriptor fields (PTX ISA, "Matrix Descriptor Format"; CUTLASS's
 // cute/arch/mma_sm90_desc.hpp): bits 0-13 the start address, 16-29 the
@@ -217,18 +218,26 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dimensions (innermost first, byte strides of
-// dimensions 1.., boxes of `box` elements); out-of-range elements read as
-// zeros.
-bool encode_bf16_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
-                     const cuuint64_t* strides, const cuuint32_t* box,
-                     CUtensorMapSwizzle swizzle) {
+// A tensor map of `rank` dimensions over elements of `type` (innermost
+// first, byte strides of dimensions 1.., boxes of `box` elements);
+// out-of-range elements read as zeros.
+bool encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int rank,
+                const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                CUtensorMapSwizzle swizzle) {
   EncodeTiledFn fn = encode_tiled();
   if (!fn) return false;
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims, strides,
-            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return fn(map, type, rank, const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The same over bf16 elements.
+bool encode_bf16_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+                     const cuuint64_t* strides, const cuuint32_t* box,
+                     CUtensorMapSwizzle swizzle) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, rank, dims, strides, box,
+                    swizzle);
 }
 
 }  // namespace
