@@ -32,6 +32,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    (D, G and D+R1 steps through ``train.steps``): step times, training
    images/s, peak memory, every loss, every network moving, one profiled G
    step, and the launches of K1 and K2 (K2 once per G step) and K3 (none);
+   then ``remat_save_kernels`` off, on, off again and on again (the first
+   D and G steps' losses bit-equal, no kernel prepared again in the first
+   G backward with the knob on and some without it, its gradients on
+   against off within 4 times the spread between runs of one setting, the
+   next pair's step times and peak memory);
    then the same with the fused StyledConv (K6 and its backward counted);
    then 1024px training at batch 2 in the JAX package's 1024px mode (the
    blockwise differentiable correspondence, unbatched D passes, nested
@@ -43,8 +48,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    and gradients), the narrow generator's bf16-vs-float32 distance on the
    card and on the CPU, the training check again with the 1024px mode's
    knobs, and the narrow bf16 model with the fused StyledConv on the card
-   against the CPU (generator outputs, one G step);
-7. cli: ``python -m ppst_tpu_torch.test --device cuda`` on two generated
+   against the CPU (generator outputs, one G step); the smoothing filter
+   at 512 x 512, f_radius 15, on the card against the CPU, and its time,
+   and its PIL wrapper on the card (its default) against the CPU;
+7. cli: ``python -m ppst_tpu_torch.test --device cuda`` (seed weights saved
+   as a checkpoint and passed with ``--checkpoint``) on two generated
    512px PNGs (simple_swapping), again with ``--fused_styled_conv true``, then
    the grid evaluator on a generated folder of 2 + 2 512px PNGs; ``python -m
    ppst_tpu_torch.train --device cuda`` at 512px, batch 2, then
@@ -66,7 +74,14 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    one of the same state, a G step's wall alone and with a background save,
    its copy to the host or its ``torch.save`` in flight (what a save costs
    the loop), ``--continue_train`` from it, and the loader's ms per image
-   with and without the native library.
+   with and without the native library; last, the reference launcher's
+   recipes through ``python -m ppst_tpu_torch.experiments CelebA``, in this
+   process: ``dry``, the train line on a generated CelebAMask tree (bf16,
+   fused tap, 16 images, swap_visualization; ``opt.txt``, ``opt.pkl``, the
+   checkpoints, K1 and K2 counted), then the test line's grid on a tree of
+   2 contents and 4 styles with no ``--checkpoint`` (it finds the train
+   run's), its PNGs bit-equal to the same grid from ``--dataset_mode
+   imagefolder``.
 
 Each phase prints its seconds. Then the script prints the ``kernels`` line
 and, last, the ``ok`` line. Without a CUDA device it exits non-zero before
@@ -75,8 +90,10 @@ printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1393,7 +1410,8 @@ def train_cli_phase():
             paths.append(p)
         t0 = time.perf_counter()
         subprocess.run(
-            [sys.executable, "-m", "ppst_tpu_torch.test", "--device", "cuda", "--checkpoint",
+            [sys.executable, "-m", "ppst_tpu_torch.test", "--device", "cuda", "--name", "ppst",
+             "--evaluation_metrics", "simple_swapping", "--checkpoint",
              os.path.join(ck, "smoke", "latest_checkpoint.pth"), "--preprocess", "resize",
              "--load_size", "512", "--crop_size", "512", "--input_structure_image", paths[0],
              "--input_texture_image", paths[1], "--result_dir", os.path.join(tmp, "res")],
@@ -1595,6 +1613,7 @@ def pak_grid_phase(tap_cuda, card):
                 Image.fromarray((rng.random((512, 512, 3)) * 255).astype(np.uint8)).save(
                     os.path.join(data, sub, f"{sub}{i}.png"))
         pak = os.path.join(tmp, "grid.pak")
+        weights = seed_weights(os.path.join(tmp, "seed.pth"))
         t0 = time.perf_counter()
         dataset_tools.main(["--input", data, "--output", pak])
         pack_s = time.perf_counter() - t0
@@ -1603,7 +1622,8 @@ def pak_grid_phase(tap_cuda, card):
             out = os.path.join(tmp, mode)
             reset_launches()
             t0 = time.perf_counter()
-            test_cli.main(["--device", "cuda", "--dtype", "bfloat16", "--fused_tap", "true",
+            test_cli.main(["--device", "cuda", "--name", "ppst", "--checkpoint", weights,
+                           "--dtype", "bfloat16", "--fused_tap", "true",
                            "--preprocess", "resize", "--load_size", "512", "--crop_size", "512",
                            "--evaluation_metrics", "content_style_grid_generation",
                            "--dataset_mode", mode, "--dataroot", root, "--result_dir", out])
@@ -1631,6 +1651,318 @@ def pak_grid_phase(tap_cuda, card):
                       "pngs_identical": len(files), "fused_tap_launches": launches,
                       "card": card}), flush=True)
     return sum(launches)
+
+
+def celebamask_tree(root, rng, names, size):
+    """``root/img/<name>.png`` of ``size`` (w, h) and a 3-class mask for each,
+    ``root/label/<k>.png`` in the images' sorted order. Returns the two
+    folders."""
+    from PIL import Image
+
+    img, label = os.path.join(root, "img"), os.path.join(root, "label")
+    for k, name in enumerate(sorted(names)):
+        os.makedirs(os.path.dirname(os.path.join(img, name)), exist_ok=True)
+        os.makedirs(label, exist_ok=True)
+        Image.fromarray((rng.random(size[::-1] + (3,)) * 255).astype(np.uint8)).save(
+            os.path.join(img, f"{name}.png"))
+        Image.fromarray(rng.integers(0, 3, size[::-1]).astype(np.uint8)).save(
+            os.path.join(label, f"{k}.png"))
+    return img, label
+
+
+def launcher_phase(tap_cuda, card):
+    """The reference launcher's two recipes through the port
+    (``python -m ppst_tpu_torch.experiments CelebA``), in this process, so
+    that K1 and K2 are counted: ``dry``'s lines; the train line with a
+    generated CelebAMask tree of 8 pairs of 520 x 600, bf16, the fused tap,
+    16 images, a checkpoint every 8 and swap_visualization at image 8
+    (``opt.txt``'s default column, ``opt.pkl``, the checkpoints, the grid
+    page); then the test line (the grid, ``content_style_1t1_generation``)
+    on a tree of 2 contents and 4 styles of 512 x 512 with masks, with no
+    ``--checkpoint``: it must find the train run's, and its PNGs must equal,
+    bit for bit, those of the same grid from ``--dataset_mode imagefolder``
+    with that checkpoint. Prints each run's wall time, the train run's
+    img/s and step times, the grid's pairs/s and peak memory. Returns K1's
+    and K2's launches."""
+    import contextlib
+    import io
+    import pickle
+    import signal
+
+    from PIL import Image
+
+    from ppst_tpu_torch import test as test_cli
+    from ppst_tpu_torch.evaluation import GroupEvaluator
+    from ppst_tpu_torch.experiments import find_launcher_using_name
+    from ppst_tpu_torch.experiments.__main__ import main as experiments_main
+    from ppst_tpu_torch.optimizers.ppst_optimizer import PPSTOptimizer
+    from ppst_tpu_torch.options import program_args
+    from ppst_tpu_torch.train import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        experiments_main(["CelebA", "dry"])
+    dry = out.getvalue().splitlines()
+    launcher = find_launcher_using_name("CelebA")()
+    (train_line,), (test_line,) = launcher.commands(), launcher.test_commands()
+    if dry != [train_line] or not train_line.startswith("python -m ppst_tpu_torch.train ") \
+            or not test_line.startswith("python -m ppst_tpu_torch.test "):
+        raise AssertionError(f"the launcher printed {dry}; test line {test_line}")
+
+    rng = np.random.default_rng(6)
+    step_ms, evals = [], []
+    train_step, group_evaluate = PPSTOptimizer.train_one_step, GroupEvaluator.evaluate
+
+    def timed_step(self, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = train_step(self, *args)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return losses
+
+    def measured_evaluate(self, *args):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        metrics = group_evaluate(self, *args)
+        torch.cuda.synchronize()
+        evals.append({"eval_ms": (time.perf_counter() - t0) * 1e3,
+                      "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+        return metrics
+
+    with tempfile.TemporaryDirectory() as tmp:
+        img, label = celebamask_tree(os.path.join(tmp, "train"), rng,
+                                     [f"{i}" for i in range(8)], (520, 600))
+        test_img, test_label = celebamask_tree(
+            os.path.join(tmp, "test"), rng,
+            [f"content/c{i}" for i in range(2)] + [f"style/s{i}" for i in range(4)], (512, 512))
+        ck = os.path.join(tmp, "ck")
+        train_argv = program_args(train_line) + [
+            "--dataroot", img, "--dataroot2", label, "--checkpoints_dir", ck, "--device", "cuda",
+            "--dtype", "bfloat16", "--fused_tap", "true", "--total_nimgs", "16", "--save_freq",
+            "8", "--evaluation_freq", "8"]
+        handlers = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
+        PPSTOptimizer.train_one_step, GroupEvaluator.evaluate = timed_step, measured_evaluate
+        secs, launches = {}, {}
+        try:
+            reset_launches()
+            t0 = time.perf_counter()
+            cli.main(train_argv)
+            torch.cuda.synchronize()
+            secs["train"] = time.perf_counter() - t0
+            launches["train"] = (tap_cuda.fused_tap_1x1.launches,
+                                 tap_cuda.fused_tap_1x1_bwd.launches)
+            read_standalone_launches()
+            common = program_args(test_line) + [
+                "--dataroot", test_img, "--dataroot2", test_label, "--checkpoints_dir", ck,
+                "--device", "cuda", "--dtype", "bfloat16", "--fused_tap", "true"]
+            for name, extra in (("grid", []), ("grid from the folder", [
+                    "--dataset_mode", "imagefolder", "--checkpoint",
+                    os.path.join(ck, "CelebAMaskHQ_default", "latest_checkpoint.pth")])):
+                reset_launches()
+                t0 = time.perf_counter()
+                test_cli.main(common + ["--result_dir", os.path.join(tmp, name)] + extra)
+                torch.cuda.synchronize()
+                secs[name] = time.perf_counter() - t0
+                launches[name] = (tap_cuda.fused_tap_1x1.launches,
+                                  tap_cuda.fused_tap_1x1_bwd.launches)
+                read_standalone_launches()
+        finally:
+            PPSTOptimizer.train_one_step, GroupEvaluator.evaluate = train_step, group_evaluate
+            for s, h in handlers.items():
+                signal.signal(s, h)
+        for k in kernel_wrappers():
+            if k not in (tap_cuda.fused_tap_1x1, tap_cuda.fused_tap_1x1_bwd) and k.launches:
+                raise AssertionError(f"the launcher's runs launched {k.__name__}")
+
+        run = os.path.join(ck, "CelebAMaskHQ_default")
+        with open(os.path.join(run, "opt.txt")) as f:
+            opt_txt = f.read()
+        for line in ("dataroot", "preprocess", "total_nimgs", "evaluation_metrics"):
+            if not re.search(rf"^ +{line}: .*\t\[default: ", opt_txt, re.M):
+                raise AssertionError(f"opt.txt's {line} line has no default column")
+        with open(os.path.join(run, "opt.pkl"), "rb") as f:
+            opt = vars(pickle.load(f))
+        if opt["name"] != "CelebAMaskHQ_default" or opt["dataset_mode"] != "CelebAMask" \
+                or opt["checkpoints_dir"] != ck or not opt["continue_train"]:
+            raise AssertionError(f"opt.pkl holds {opt}")
+        raw = torch.load(os.path.join(run, "latest_checkpoint.pth"), map_location="cpu",
+                         weights_only=True)
+        if raw["steps"] != 16 or raw["num_d_iters"] != 4:
+            raise AssertionError(f"the train run saved steps {raw['steps']} and "
+                                 f"{raw['num_d_iters']} D steps (16 and 4 expected)")
+        swaps = os.path.join(run, "snapshots", "test_0k")
+        swap_pngs = sorted(os.listdir(os.path.join(swaps, "images")))
+        if not os.path.exists(os.path.join(swaps, "index.html")) or len(swap_pngs) != 2:
+            raise AssertionError(f"swap_visualization wrote {swap_pngs}")
+        # 4 D and 4 G steps: K1 once a D step and twice a G step, once for
+        # each of the 8 images of swap_visualization's two grids; K2 once a
+        # G step. The grid: one batched extraction of the 6 images.
+        want = {"train": (4 + 2 * 4 + 8, 4), "grid": (1, 0), "grid from the folder": (1, 0)}
+        if launches != want:
+            raise AssertionError(f"K1 and K2 launched {launches} times ({want} expected)")
+        pages = [os.path.join(tmp, name, "CelebAMaskHQ_default", "test1",
+                              "contentstylegridgeneration", "test_latest") for name in
+                 ("grid", "grid from the folder")]
+        files = sorted(os.listdir(os.path.join(pages[0], "images")))
+        if not os.path.exists(os.path.join(pages[0], "index.html")) or len(files) != 1 + 4 + 2 * 5 \
+                or files != sorted(os.listdir(os.path.join(pages[1], "images"))):
+            raise AssertionError(f"the grid wrote {files}")
+        for f in files:
+            a, b = (np.asarray(Image.open(os.path.join(p, "images", f))) for p in pages)
+            if a.shape != (512, 512, 3) or not np.array_equal(a, b):
+                raise AssertionError(f"{f}: the grid from CelebAMask differs from the folder's")
+    train_evals, grid_evals = evals[:1], evals[1:]
+    print(json.dumps({
+        "path": "cli launcher CelebA", "crop": 512, "batch": 2, "dtype": "bfloat16",
+        "fused_tap": True, "run_s": secs, "train_step_ms": step_ms,
+        "train_img_per_s_wall": 16 / secs["train"],
+        "train_img_per_s_steps": 2 * len(step_ms) / sum(step_ms) * 1e3,
+        "swap_visualization": train_evals, "grid_pairs": 2 * 4,
+        "grid_evaluations": grid_evals,
+        "grid_pairs_per_s": [8 / (e["eval_ms"] / 1e3) for e in grid_evals],
+        "pngs_identical": len(files), "launches_k1_k2": launches, "card": card}), flush=True)
+    return sum(v[0] for v in launches.values()), sum(v[1] for v in launches.values())
+
+
+def smooth_filter_phase(card):
+    """The smoothing filter (no kernel of its own: plain PyTorch) at 512 x
+    512, f_radius 15, f_edge 0.1, on the card (TF32 off) against the CPU run
+    of the same code, within 1e-3; its time on the card. Then the PIL
+    wrapper, as a user calls it (on the card by default), against its CPU
+    run within one uint8 step."""
+    from PIL import Image
+
+    from ppst_tpu_torch.ops.smooth_filter import smooth_local_affine
+    from ppst_tpu_torch.smooth_filter import smooth_filter
+
+    gen = torch.Generator().manual_seed(8)
+    stylized, content = (torch.rand((1, 512, 512, 3), generator=gen) for _ in range(2))
+    want = smooth_local_affine(stylized, content, f_radius=15, f_edge=0.1)
+    s_dev, c_dev = stylized.cuda(), content.cuda()
+    got = smooth_local_affine(s_dev, c_dev, f_radius=15, f_edge=0.1)
+    err = (got.cpu() - want).abs().max().item()
+    if not err <= 1e-3:
+        raise AssertionError(f"smooth_local_affine on the card is {err} from the CPU's")
+    ms = cuda_ms(lambda: smooth_local_affine(s_dev, c_dev, f_radius=15, f_edge=0.1), reps=5)
+    init, content_img = (Image.fromarray((t[0].numpy() * 255).astype(np.uint8))
+                         for t in (stylized, content))
+    png_card = np.asarray(smooth_filter(init, content_img), np.int16)
+    png_cpu = np.asarray(smooth_filter(init, content_img, device="cpu"), np.int16)
+    png_err = int(np.abs(png_card - png_cpu).max())
+    if png_card.shape != (512, 512, 3) or png_err > 1:
+        raise AssertionError(f"smooth_filter on the card: shape {png_card.shape}, "
+                             f"{png_err} uint8 steps from the CPU's")
+    print(json.dumps({"path": "smooth_filter", "shape": [1, 512, 512, 3], "f_radius": 15,
+                      "f_edge": 0.1, "max_abs_err_vs_cpu": err, "ms": ms,
+                      "pil_wrapper_uint8_steps_vs_cpu": png_err, "card": card}),
+          flush=True)
+
+
+def remat_save_kernels_phase(tap_cuda, PPSTConfig, PPSTModel, card, crop=512, batch=4):
+    """512px full-width bf16 training with the fused tap at batch 4, with
+    ``remat`` (every G pass recomputed), ``remat_save_kernels`` off, on, off
+    again and on again, each from the same seed weights and batch: a D and a
+    G step, then a D and a G step timed, with the peak memory of that pair.
+    Held: the first pair's losses are bit-equal across the four (the D step
+    and G's forward do not depend on the knob); the first G step's backward
+    prepares no kernel again with the knob on and some without it
+    (``KernelRecomputeCounter``); and its gradients with the knob on are as
+    close to those with it off as two runs of one setting are to each other
+    (the card's backward sums with atomics, so two runs are not bitwise
+    equal): for each of G, E1 and E2, the normalized L2 distance of all its
+    gradients as one vector, on against off, within 4 times the larger of
+    off against off again and on against on again (bit-equal where both are
+    0). Per tensor the distance says nothing: a bias that an instance norm
+    follows has a gradient of rounding noise alone, about sqrt(2) apart
+    between any two runs. The second pair follows the first
+    pair's updates, where Adam turns last-bit differences into whole steps:
+    its losses' largest relative differences are printed, not held. Returns
+    K1's and K2's launches."""
+    from ppst_tpu_torch.models.ppst import KernelRecomputeCounter
+    from ppst_tpu_torch.train.steps import GE_KEYS, TrainSteps
+
+    def grad_distance(a, b):
+        """Each network's normalized L2 distance, its gradients as one vector."""
+        return {k: (sum((x - y).double().norm() ** 2 for x, y in zip(a[k], b[k]))
+                    / sum(y.double().norm() ** 2 for y in b[k])).sqrt().item() for k in b}
+
+    runs, grads, spread = {}, {}, {}
+    reset_launches()
+    for name, knob in (("off", False), ("on", True), ("off again", False), ("on again", True)):
+        model = PPSTModel(PPSTConfig(crop_size=crop, dtype="bfloat16", fused_tap=True,
+                                     remat_save_kernels=knob), device="cuda", seed=0)
+        steps = TrainSteps(model)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        real, mask = synthetic_batch(gen, batch, crop)
+        losses, ms = [], {}
+        for i, kind in enumerate(("d", "g", "d", "g")):
+            if i == 2:
+                torch.cuda.reset_peak_memory_stats()
+            counter = KernelRecomputeCounter() if i == 1 else contextlib.nullcontext()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with counter:
+                out = (steps.d_step if kind == "d" else steps.g_step)(real, mask, gen)
+            torch.cuda.synchronize()
+            ms[kind] = (time.perf_counter() - t0) * 1e3
+            losses.append({k: v.item() for k, v in out.items()})
+            if i == 1:
+                recomputed = counter.count
+                g = {k: [p.grad.float().clone() for p in getattr(model, k).parameters()]
+                     for k in GE_KEYS}
+                if name.endswith(" again"):
+                    first = name.split()[0]
+                    spread[first] = grad_distance(g, grads[first])
+                else:
+                    grads[name] = g
+                del g
+        runs[name] = {"d_step_ms": ms["d"], "g_step_ms": ms["g"],
+                      "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "kernel_ops_recomputed_in_g_backward": recomputed, "losses": losses}
+        del model, steps
+        torch.cuda.empty_cache()
+    k1, k2 = tap_cuda.fused_tap_1x1.launches, tap_cuda.fused_tap_1x1_bwd.launches
+    read_standalone_launches()
+    on_vs_off = grad_distance(grads["on"], grads["off"])
+    del grads
+    torch.cuda.empty_cache()
+    first = {name: run["losses"][:2] for name, run in runs.items()}
+    if any(v != first["off"] for v in first.values()):
+        raise AssertionError(f"remat_save_kernels changed the first D and G steps' losses: "
+                             f"{first}")
+    recomputed = {name: run["kernel_ops_recomputed_in_g_backward"] for name, run in runs.items()}
+    if any(n != 0 for name, n in recomputed.items() if name.startswith("on")) or any(
+            n == 0 for name, n in recomputed.items() if name.startswith("off")):
+        raise AssertionError(f"the G backward prepared kernels again {recomputed} times "
+                             "(none with the knob on, some with it off expected)")
+    bound = {k: 4 * max(spread["off"][k], spread["on"][k]) for k in GE_KEYS}
+    if any(not on_vs_off[k] <= bound[k] for k in GE_KEYS):
+        raise AssertionError(f"the first G step's gradients, knob on against off, are "
+                             f"{on_vs_off} apart (normalized L2) against {bound} (4 x the "
+                             f"larger of off/off again and on/on again, {spread})")
+    if (k1, k2) != (4 * 6, 4 * 2):
+        raise AssertionError(f"K1 and K2 launched {k1} and {k2} times (24 and 8 expected)")
+
+    def second_pair_rel(a, b):
+        return max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-30)
+                   for x, y in zip(a["losses"][2:], b["losses"][2:]) for k in y)
+
+    print(json.dumps({"path": "train remat_save_kernels", "crop": crop, "batch": batch,
+                      "dtype": "bfloat16", "fused_tap": True,
+                      **{name: {k: v for k, v in run.items() if k != "losses"}
+                         for name, run in runs.items()},
+                      "first_pair_losses_bit_equal": True,
+                      "first_g_grads_normalized_l2": {
+                          "on_vs_off": on_vs_off, "off_again_vs_off": spread["off"],
+                          "on_again_vs_on": spread["on"], "bound": bound},
+                      "second_pair_max_rel_diff": {
+                          "on_vs_off": second_pair_rel(runs["on"], runs["off"]),
+                          "off_again_vs_off": second_pair_rel(runs["off again"], runs["off"]),
+                          "on_again_vs_on": second_pair_rel(runs["on again"], runs["on"])},
+                      "launches_k1_k2": [k1, k2], "card": card}), flush=True)
+    return k1, k2
 
 
 def loader_ms_per_img(opt):
@@ -1924,13 +2256,28 @@ def torchrun_phase(tap_cuda, card):
     return k1_trace + k1_here + k1_resume, k2_trace + k2_here + k2_resume
 
 
+def seed_weights(path, **cfg):
+    """The weights a full-width PPSTModel draws from seed 0, saved as a
+    checkpoint for the inference CLI's ``--checkpoint`` (it serves no weights
+    it does not load)."""
+    from ppst_tpu_torch.models.config import PPSTConfig
+    from ppst_tpu_torch.models.ppst import PPSTModel
+
+    torch.save(PPSTModel(PPSTConfig(**cfg), device="cpu", seed=0).state_dict(), path)
+    return path
+
+
 def cli_phase():
+    """The inference CLI in its own processes on seed weights saved as a
+    checkpoint: simple_swapping, again with the fused StyledConv, and the
+    grid evaluator on a folder of 2 + 2 512px PNGs."""
     from PIL import Image
 
     rng = np.random.default_rng(0)
-    common = ["--device", "cuda", "--dtype", "bfloat16", "--fused_tap", "true",
-              "--preprocess", "resize", "--load_size", "512", "--crop_size", "512"]
     with tempfile.TemporaryDirectory() as tmp:
+        common = ["--device", "cuda", "--name", "ppst", "--dtype", "bfloat16", "--fused_tap",
+                  "true", "--preprocess", "resize", "--load_size", "512", "--crop_size", "512",
+                  "--checkpoint", seed_weights(os.path.join(tmp, "seed.pth"))]
         paths = []
         for name in ("content", "style"):
             p = os.path.join(tmp, f"{name}.png")
@@ -2057,6 +2404,10 @@ def main():
     k2_launches, _, _ = phase("train 512px", train_phase, tap_cuda, corr_warp_cuda,
                               styled_conv_cuda, PPSTConfig, PPSTModel, card)
     torch.cuda.empty_cache()
+    k1_remat, k2_remat = phase("train 512px remat_save_kernels", remat_save_kernels_phase,
+                               tap_cuda, PPSTConfig, PPSTModel, card)
+    k1_launches += k1_remat
+    k2_launches += k2_remat
     _, _, k6b_launches = phase("train 512px fused StyledConv", train_phase, tap_cuda,
                                corr_warp_cuda, styled_conv_cuda, PPSTConfig, PPSTModel, card,
                                True)
@@ -2069,6 +2420,7 @@ def main():
     phase("reference train 1024px knobs", train_reference_check, PPSTConfig, PPSTModel,
           dict(TRAIN_1024_KNOBS, corr_block=16))
     phase("reference fused StyledConv", fused_reference_check, PPSTConfig, PPSTModel)
+    phase("smooth_filter", smooth_filter_phase, card)
     phase("cli", cli_phase)
     phase("cli train", train_cli_phase)
     k1_cli, k2_cli = phase("cli train snapshots+eval", cli_train_eval_phase, tap_cuda, card)
@@ -2079,6 +2431,9 @@ def main():
                            card)
     k1_launches += k1_run
     k2_launches += k2_run
+    k1_cli, k2_cli = phase("cli launcher CelebA", launcher_phase, tap_cuda, card)
+    k1_launches += k1_cli
+    k2_launches += k2_cli
 
     print(json.dumps({"kernels": [
         {"name": "fused_tap_1x1", "route": "cuda", "source": "ppst_tpu_torch/csrc/tap.cu",

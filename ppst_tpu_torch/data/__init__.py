@@ -44,6 +44,11 @@ def find_dataset_using_name(dataset_name: str):
                               "ppst_tpu_torch.data")
 
 
+def get_option_setter(dataset_name: str):
+    """The flags of ``--dataset_mode`` (the name lower-cased, as the module's)."""
+    return find_dataset_using_name(dataset_name).modify_commandline_options
+
+
 def create_dataset(opt):
     return ConfigurableDataLoader(opt)
 

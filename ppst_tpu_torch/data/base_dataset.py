@@ -22,6 +22,10 @@ BICUBIC = Image.BICUBIC
 
 
 class BaseDataset(ABC):
+    @staticmethod
+    def modify_commandline_options(parser, is_train):
+        return parser
+
     def __init__(self, opt):
         self.opt = opt
         self.epoch = 0

@@ -26,7 +26,7 @@ from ppst_tpu_torch.data.base_dataset import (
 )
 from ppst_tpu_torch.data import native
 from ppst_tpu_torch.data.image_folder import make_dataset
-from ppst_tpu_torch.options import str2bool
+from ppst_tpu_torch.util.util import str2bool
 
 
 class CelebAMaskDataset(BaseDataset):

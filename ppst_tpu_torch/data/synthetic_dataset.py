@@ -10,6 +10,11 @@ from ppst_tpu_torch.data.base_dataset import BaseDataset
 
 
 class SyntheticDataset(BaseDataset):
+    @staticmethod
+    def modify_commandline_options(parser, is_train):
+        parser.add_argument("--synthetic_size", default=64, type=int)
+        return parser
+
     def __init__(self, opt):
         super().__init__(opt)
         self.size = getattr(opt, "synthetic_size", 64)

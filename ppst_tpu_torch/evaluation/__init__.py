@@ -5,12 +5,9 @@
 ``train`` or ``test`` prefix naming the loader phase it evaluates (``test``
 by default) and resolves to the class of ``<metric>_evaluator``.
 ``content_style_1t1_generation`` is an alias of the grid evaluator (the
-reference launcher's metric name).
-
-A ``GroupEvaluator`` runs the ``BaseEvaluator`` subclasses on the loader.
-The serving evaluators are not of that hierarchy: they take their own
-inputs, two image files or one ordered pass over a folder, and are run by
-``python -m ppst_tpu_torch.test`` directly.
+reference launcher's metric name). Every evaluator is a ``BaseEvaluator``,
+adds its flags through ``modify_commandline_options`` and runs on the
+loader, at train time and in ``python -m ppst_tpu_torch.test``.
 """
 
 from __future__ import annotations
@@ -52,31 +49,25 @@ def find_evaluator_classes(opt):
     return classes, phases
 
 
-def loader_evaluator_classes(opt):
-    """``find_evaluator_classes``, refusing an evaluator that does not run on
-    the loader."""
-    classes, phases = find_evaluator_classes(opt)
-    serving = [c.__name__ for c in classes if not issubclass(c, BaseEvaluator)]
-    if serving:
-        raise ValueError(f"{', '.join(serving)} run through python -m ppst_tpu_torch.test, "
-                         "not on the loader")
-    return classes, phases
+def get_option_setter():
+    return GroupEvaluator.modify_commandline_options
 
 
 class GroupEvaluator(BaseEvaluator):
     @staticmethod
-    def modify_commandline_options(parser, is_train, argv=None):
-        """Adds each selected evaluator's flags to a parser that already has
-        ``--evaluation_metrics``."""
-        opt, _ = parser.parse_known_args(argv)
-        classes, _ = loader_evaluator_classes(opt)
+    def modify_commandline_options(parser, is_train):
+        """Adds ``--evaluation_metrics`` and each selected evaluator's flags
+        (``parser`` is an ``options.AugmentedArgumentParser``)."""
+        parser.add_argument("--evaluation_metrics", default="none")
+        opt, _ = parser.parse_known_args()
+        classes, _ = find_evaluator_classes(opt)
         for cls in classes:
             parser = cls.modify_commandline_options(parser, is_train)
         return parser
 
     def __init__(self, opt, target_phase=None):
         super().__init__(opt, target_phase=None)
-        classes, phases = loader_evaluator_classes(opt)
+        classes, phases = find_evaluator_classes(opt)
         self.evaluators = [cls(opt, target_phase=ph) for cls, ph in zip(classes, phases)]
 
     def evaluate(self, model, dataset, nsteps=None, generator=None):

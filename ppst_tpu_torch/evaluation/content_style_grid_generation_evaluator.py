@@ -1,20 +1,24 @@
-"""Folder x folder content/style grid with guided-filter post-processing
-(counterpart of
+"""Content x style grid with guided-filter post-processing (counterpart of
 ``ppst_tpu/evaluation/content_style_grid_generation_evaluator.py``; reference
 evaluation/content_style_grid_generation_evaluator.py).
 
-Dataset items with a ``content`` folder in their path are structure images;
-all others are styles. The path may be relative, as a pack's keys are
+A ``BaseEvaluator``: ``GroupEvaluator`` runs it on the loader of any
+``--dataset_mode``, at train time and in ``python -m ppst_tpu_torch.test``.
+Items with a ``content`` folder in their path are structure images; all
+others are styles. The path may be relative, as a pack's keys are
 (``content/a.png``, ``--dataset_mode lmdb``): the JAX package's evaluator
-matches "/content/" only, and so takes every image of a pack for a style. Every (content, style) pair is stylized with the content
-as the guided filter's guide, and the grid is written as an HTML page.
+matches "/content/" only, and so takes every image of a pack for a style.
+Every (content, style) pair is stylized in ``--dtype`` with the content as
+the guided filter's guide, and the grid is written as an HTML page under
+``output_dir()/<phase>_<nsteps>``, with the JAX package's page and file
+names.
 
 When all images share one shape, extraction runs once per image in batched
 chunks (``PPSTModel.grid_extract``) and each content row of pairs is one
 ``grid_pairs`` dispatch. The row is converted to uint8 on the device and
 copied to the host asynchronously; its PNGs are encoded on a thread pool
 while the next row runs on the device. Otherwise each pair runs the
-per-pair pipeline.
+per-pair pipeline. ``self.page`` is the last page written.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from ppst_tpu_torch.evaluation.base_evaluator import BaseEvaluator
 from ppst_tpu_torch.models.ppst import cat_banks, take_rows
 from ppst_tpu_torch.ops.corr import rselfcorr
 from ppst_tpu_torch.util.html import HTML
@@ -43,17 +48,9 @@ def _to_host_async(t):
     return host, done
 
 
-class ContentStyleGridGenerationEvaluator:
-    target_phase = "test"
-
-    def __init__(self, opt):
-        self.opt = opt
-
-    def output_dir(self):
-        return os.path.join(self.opt.result_dir, self.opt.name, self.opt.dataname,
-                            "contentstylegridgeneration")
-
+class ContentStyleGridGenerationEvaluator(BaseEvaluator):
     def create_webpage(self, nsteps):
+        nsteps = self.opt.resume_iter if nsteps is None else nsteps
         savedir = os.path.join(self.output_dir(), f"{self.target_phase}_{nsteps}")
         os.makedirs(savedir, exist_ok=True)
         self.webpage = HTML(savedir, f"{self.opt.name}. iter={nsteps}. "
@@ -63,10 +60,11 @@ class ContentStyleGridGenerationEvaluator:
         self.webpage.add_images([tensor2im(im)[0] for im in images], filenames)
         print(f"saved {filenames}")
 
-    @torch.inference_mode()
-    def evaluate(self, model, dataset, generator=None, dtype=torch.float32, nsteps="latest"):
+    @torch.no_grad()
+    def evaluate(self, model, dataset, nsteps=None, generator=None):
         """``dataset``: an iterable of batches ``{real_A, path_A}``. Writes the
-        page and its PNGs; returns the page's path."""
+        page and its PNGs (the page's path in ``self.page``)."""
+        dtype = getattr(torch, getattr(self.opt, "dtype", "float32"))
         self.create_webpage(nsteps)
         structure_images, style_images = {}, {}
         for data_i in dataset:
@@ -87,7 +85,8 @@ class ContentStyleGridGenerationEvaluator:
         run = self._evaluate_batched if len(shapes) == 1 else self._evaluate_pairwise
         run(model, structure_images, style_images, structure_paths, style_paths,
             generator, dtype)
-        return self.webpage.save()
+        self.page = self.webpage.save()
+        return {}
 
     def _evaluate_batched(self, model, structure_images, style_images, structure_paths,
                           style_paths, generator, dtype):

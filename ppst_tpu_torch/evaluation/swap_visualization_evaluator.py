@@ -85,8 +85,12 @@ class SwapVisualizationEvaluator(BaseEvaluator):
         return grid
 
     def evaluate(self, model, dataset, nsteps=None, generator=None):
-        nsteps = (getattr(self.opt, "resume_iter", "latest") if nsteps is None
-                  else f"{round(nsteps / 1000)}k")
+        # test.py passes --resume_iter itself (the JAX package's evaluator
+        # divides that string by 1000 and raises)
+        if nsteps is None:
+            nsteps = getattr(self.opt, "resume_iter", "latest")
+        elif not isinstance(nsteps, str):
+            nsteps = f"{round(nsteps / 1000)}k"
         savedir = os.path.join(self.output_dir(), f"{self.target_phase}_{nsteps}")
         os.makedirs(savedir, exist_ok=True)
         webpage = HTML(savedir, f"Swap Visualization of {self.opt.name}. "

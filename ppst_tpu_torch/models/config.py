@@ -6,8 +6,9 @@ the reference CLI flags. ``remat``/``remat_nets`` select the training
 passes that ``torch.utils.checkpoint`` recomputes; ``remat_taps`` and
 ``remat_blocks`` recompute G's feature taps and resblocks one at a time,
 ``unbatch_passes`` splits the D step's passes, ``corr_blockwise`` trains
-through the blockwise correspondence (the 1024px training mode). The one
-memory strategy that is not ported, ``remat_save_kernels``, raises when set.
+through the blockwise correspondence (the 1024px training mode), and
+``remat_save_kernels`` keeps the prepared conv and linear kernels across
+the checkpointed passes instead of preparing them again in the recompute.
 """
 
 from __future__ import annotations
@@ -74,7 +75,9 @@ class PPSTConfig:
     # "all", or a comma list of call-site prefixes ("g" = every G pass)
     remat: bool = True
     remat_nets: str = "g"
-    # not ported: a jax.checkpoint save policy; setting it raises
+    # keep the prepared kernels (equalized-lr scale, folded blur, upscaling
+    # kernel) across the checkpointed passes (models.ppst.save_kernels_policy);
+    # bit-exact either way
     remat_save_kernels: bool = False
     # recompute each feature tap / fuse block, each G resblock
     remat_taps: bool = False
@@ -95,10 +98,6 @@ class PPSTConfig:
     # route the generator's non-upsampled 3x3 StyledConvs through the fused
     # StyledConv kernel (ops.styled_conv_cuda) when the compute dtype is bfloat16
     fused_styled_conv: bool = False
-
-    def __post_init__(self):
-        if self.remat_save_kernels:
-            raise NotImplementedError("PPSTConfig: remat_save_kernels not ported yet")
 
     @classmethod
     def from_options(cls, opt) -> "PPSTConfig":

@@ -16,11 +16,14 @@ run with grad, for ``train.steps``.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 import torch.nn as nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ppst_tpu_torch import parallel
 from ppst_tpu_torch.models.config import PPSTConfig
@@ -35,7 +38,7 @@ from ppst_tpu_torch.models.losses import (
     rscl_enqueue,
     rscl_loss_sharded,
 )
-from ppst_tpu_torch.nn.layers import init_weights
+from ppst_tpu_torch.nn.layers import init_weights, preparing_kernel
 from ppst_tpu_torch.ops import corr_blockwise
 from ppst_tpu_torch.ops.corr import corrm, resize_bilinear, rselfcorr, warp
 from ppst_tpu_torch.ops.corr_warp_cuda import normalize_desc
@@ -44,6 +47,38 @@ from ppst_tpu_torch.ops.lpips import LPIPS
 from ppst_tpu_torch.util.from_flax import from_flax
 from ppst_tpu_torch.util.msgpack_ckpt import read_checkpoint
 from ppst_tpu_torch.util.util import visualize_spatial_code
+
+
+def save_kernels_policy(ctx, op, *args, **kwargs):
+    """``remat_save_kernels``' selective-checkpoint policy (the JAX package's
+    ``save_only_these_names("ppst_kernel")``): keep the outputs of the
+    operations that prepare a kernel (``nn.layers.saveable_kernel``), views
+    aside, and recompute everything else. The recompute then takes the
+    kept kernels instead of running those operations again."""
+    if _prepares_kernel(op):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _prepares_kernel(op) -> bool:
+    """``op`` runs inside ``saveable_kernel()`` and is not a view."""
+    return preparing_kernel() and not any(r.alias_info is not None for r in op._schema.returns)
+
+
+class KernelRecomputeCounter(TorchDispatchMode):
+    """While active, counts the operations that a backward runs to prepare a
+    kernel again (those ``save_kernels_policy`` would keep): none under
+    ``remat_save_kernels``, some without it wherever ``remat`` recomputes a
+    pass. Operations outside a backward are not counted."""
+
+    def __init__(self):
+        super().__init__()
+        self.count = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if torch._C._current_graph_task_id() != -1 and _prepares_kernel(func):
+            self.count += 1
+        return func(*args, **(kwargs or {}))
 
 
 def resolve_device(device=None) -> torch.device:
@@ -297,11 +332,17 @@ class PPSTModel(nn.Module):
         """``fn``, recomputed in the backward instead of keeping its
         activations (cfg.remat) when cfg.remat_nets names ``kind``: "all",
         or a comma list matched by prefix ("g" every g_* call site, "g_mix"
-        only the rec + mix pass)."""
+        only the rec + mix pass). With cfg.remat_save_kernels the prepared
+        kernels are kept across the region (``save_kernels_policy``)."""
         nets = self.cfg.remat_nets
         if not self.cfg.remat or (nets != "all" and not any(
                 kind == n or kind.startswith(n + "_") for n in nets.split(","))):
             return fn
+        if self.cfg.remat_save_kernels:
+            context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                           save_kernels_policy)
+            return lambda *args: checkpoint(fn, *args, use_reentrant=False,
+                                            context_fn=context_fn)
         return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
     def _g_pass(self, kind: str, extract_features: bool = False):

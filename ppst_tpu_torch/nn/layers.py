@@ -9,11 +9,20 @@ convolutions run on permuted views, which PyTorch treats as channels-last.
 Weights are float32 and are cast to the activation's dtype where they are
 used, as in the JAX package. ``reset_parameters(generator)`` draws each
 layer's initial weights from the same distributions the JAX package uses.
+
+The conv and linear layers prepare their kernels (the equalized-lr scale,
+the folded blur, the upscaling kernel) inside ``saveable_kernel()``, the
+counterpart of the JAX package's ``saveable_kernel`` tag: under
+``remat_save_kernels`` the checkpointed training passes save what is
+computed there instead of deriving it again in the backward's recompute
+(``models.ppst.save_kernels_policy``). Elsewhere the tag does nothing.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Optional, Sequence
 
 import numpy as np
@@ -30,6 +39,26 @@ from ppst_tpu_torch.ops.upfirdn2d import reflect_pad
 # ---------------------------------------------------------------------------
 # Functional pieces
 # ---------------------------------------------------------------------------
+
+_preparing = threading.local()
+
+
+@contextlib.contextmanager
+def saveable_kernel():
+    """Marks the operations run inside as the preparation of a kernel (on
+    this thread, which is the one a checkpoint's recompute runs them on)."""
+    depth = getattr(_preparing, "depth", 0)
+    _preparing.depth = depth + 1
+    try:
+        yield
+    finally:
+        _preparing.depth = depth
+
+
+def preparing_kernel() -> bool:
+    """Whether this thread is inside ``saveable_kernel()``."""
+    return getattr(_preparing, "depth", 0) > 0
+
 
 
 def instance_norm(x, eps: float = 1e-5):
@@ -121,13 +150,14 @@ class EqualConv2d(_Init):
             self.bias.zero_()
 
     def forward(self, x):
-        w = self.weight.to(x.dtype) * self.scale
-        if self.blur2d is not None:
-            o, i, k, _ = w.shape
-            t = self.blur2d.shape[0]
-            comp = F.conv2d(w.reshape(o * i, 1, k, k), self.blur2d.to(w.dtype)[None, None],
-                            padding=t - 1)
-            w = comp.reshape(o, i, k + t - 1, k + t - 1)
+        with saveable_kernel():
+            w = self.weight.to(x.dtype) * self.scale
+            if self.blur2d is not None:
+                o, i, k, _ = w.shape
+                t = self.blur2d.shape[0]
+                comp = F.conv2d(w.reshape(o * i, 1, k, k), self.blur2d.to(w.dtype)[None, None],
+                                padding=t - 1)
+                w = comp.reshape(o, i, k + t - 1, k + t - 1)
         y = conv2d(x, w, self.stride, self.padding)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
@@ -151,7 +181,9 @@ class EqualLinear(_Init):
         self.bias.zero_()
 
     def forward(self, x):
-        y = F.linear(x, self.weight.to(x.dtype) * self.scale)
+        with saveable_kernel():
+            w = self.weight.to(x.dtype) * self.scale
+        y = F.linear(x, w)
         if self.activation == "fused_lrelu":
             return fused_leaky_relu(y, self.bias)
         return y + self.bias.to(y.dtype)
@@ -192,7 +224,9 @@ class EqualizedLinear(_Init):
         self.bias.zero_()
 
     def forward(self, x):
-        return F.linear(x, self.weight.to(x.dtype) * self.w_mul) + self.bias.to(x.dtype)
+        with saveable_kernel():
+            w = self.weight.to(x.dtype) * self.w_mul
+        return F.linear(x, w) + self.bias.to(x.dtype)
 
 
 class EqualizedConv2d(_Init):
@@ -213,13 +247,16 @@ class EqualizedConv2d(_Init):
         self.bias.zero_()
 
     def forward(self, x):
-        w = self.weight.to(x.dtype)
+        with saveable_kernel():
+            w = self.weight.to(x.dtype)
         k = w.shape[-1]
         if self.upscale and min(x.shape[1], x.shape[2]) * 2 >= 128:
             # pad the kernel by one, sum its four shifted copies, and run a
             # stride-2 transposed conv
-            wp = F.pad(w, (1, 1, 1, 1))
-            w4 = wp[:, :, 1:, 1:] + wp[:, :, :-1, 1:] + wp[:, :, 1:, :-1] + wp[:, :, :-1, :-1]
+            with saveable_kernel():
+                wp = F.pad(w, (1, 1, 1, 1))
+                w4 = (wp[:, :, 1:, 1:] + wp[:, :, :-1, 1:] + wp[:, :, 1:, :-1]
+                      + wp[:, :, :-1, :-1])
             y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w4.transpose(0, 1), stride=2,
                                    padding=k // 2)
             y = y.permute(0, 2, 3, 1)

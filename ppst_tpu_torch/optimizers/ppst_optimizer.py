@@ -24,6 +24,15 @@ from ppst_tpu_torch.train.steps import TrainSteps
 
 
 class PPSTOptimizer:
+    @staticmethod
+    def modify_commandline_options(parser, is_train):
+        parser.add_argument("--lr", default=0.001, type=float)
+        parser.add_argument("--beta1", default=0.0, type=float)
+        parser.add_argument("--beta2", default=0.99, type=float)
+        parser.add_argument("--R1_once_every", default=16, type=int,
+                            help="lazy R1 regularization: computed once every N D-steps")
+        return parser
+
     def __init__(self, opt, bundle):
         self.opt = opt
         self.bundle = bundle

@@ -12,6 +12,13 @@ the D-step count, the four optimizers' state (the reference restarts Adam's
 moments on resume; this does not) and the image count. Writes are atomic: a
 temporary file, then ``os.replace``.
 
+``create_model`` loads ``<checkpoints_dir>/<name>/<resume_iter>`` at test
+time, and raises ``FileNotFoundError`` where it is missing, as the JAX
+package's does (``ppst_tpu/train/bundle.py:323-337``); the test CLI's
+``--checkpoint FILE`` loads that file instead. At train time it loads only
+under ``--continue_train``, and starts from the seed's weights where the
+file is missing.
+
 ``load`` also reads the JAX package's checkpoints
 (``<N>k_checkpoint.msgpack``, ``latest_checkpoint.msgpack``) through
 ``util.msgpack_ckpt`` and the weight bridge: weights, RSCL state, D-step
@@ -62,7 +69,9 @@ class ModelBundle:
         parallel.broadcast_module(self.model)
         self.generator = torch.Generator(device=self.device).manual_seed(
             noise_seed(seed, parallel.rank()))
-        self.optimizers = make_optimizers(self.model)
+        # serving builds none: torch's first Adam imports torch._dynamo,
+        # seconds of a test CLI call
+        self.optimizers = make_optimizers(self.model) if getattr(opt, "isTrain", True) else {}
         self._save_thread = self._save_error = None
         for key in ("E1", "E2", "G", "D"):
             net = getattr(self.model, key)
@@ -153,8 +162,9 @@ class ModelBundle:
 
     def load(self, resume_iter: str = "latest", pretrained_name: str = None):
         """Tolerant load: a key missing from the file or of another shape
-        keeps its initialization, with a warning; at test time D is
-        skipped, as in the reference (base_model.py:61)."""
+        keeps its initialization, with a warning; at test time D and the
+        optimizers' state are skipped (the reference skips D,
+        base_model.py:61)."""
         load_dir = (os.path.join(self.opt.checkpoints_dir, pretrained_name) if pretrained_name
                     else self.save_dir)
         stem = ("latest_checkpoint" if resume_iter == "latest"
@@ -168,12 +178,12 @@ class ModelBundle:
         else:
             raise FileNotFoundError(f"no {stem}.pth or {stem}.msgpack in {load_dir}")
         sd = raw.get("state_dict", raw)
-        skip_d = not getattr(self.opt, "isTrain", True)
+        serving = not getattr(self.opt, "isTrain", True)
         own = self.model.state_dict()
         merged = {}
         for k, v in own.items():
             new = sd.get(k)
-            if skip_d and k.startswith("D."):
+            if serving and k.startswith("D."):
                 merged[k] = v
             elif new is None:
                 print(f"[load] missing {k}, keeping initialization")
@@ -188,7 +198,7 @@ class ModelBundle:
         if "rscl" in raw:
             self.model.set_rscl_state({k: v.to(self.device) for k, v in raw["rscl"].items()})
         self.model.num_d_iters = int(raw.get("num_d_iters", 0))
-        for k, state in raw.get("optimizers", {}).items():
+        for k, state in ({} if serving else raw.get("optimizers", {})).items():
             try:
                 self.optimizers[k].load_state_dict(state)
             except (KeyError, ValueError) as e:
@@ -212,7 +222,7 @@ class ModelBundle:
             raw["rscl"] = rscl_from_flax(state)
         if "num_d_iters" in state:
             raw["num_d_iters"] = int(state["num_d_iters"])
-        if "opt_states" in tree:
+        if "opt_states" in tree and self.optimizers:
             try:
                 raw["optimizers"] = {k: self._adam_state_dict(k, tree["opt_states"][k])
                                      for k in self.optimizers}
@@ -262,10 +272,16 @@ def _squeezed(shape) -> tuple:
 
 def create_model(opt) -> ModelBundle:
     bundle = ModelBundle(opt)
-    if getattr(opt, "continue_train", False):
+    is_train = getattr(opt, "isTrain", True)
+    if not is_train and getattr(opt, "checkpoint", None):
+        bundle.model.load_reference_checkpoint(opt.checkpoint)
+        print(f"Loaded checkpoint from {opt.checkpoint}")
+    elif not is_train or getattr(opt, "continue_train", False):
         try:
             bundle.load(getattr(opt, "resume_iter", "latest"),
                         getattr(opt, "pretrained_name", None))
         except FileNotFoundError as e:
+            if not is_train:
+                raise
             print(f"[load] {e}; starting from scratch")
     return bundle

@@ -1,12 +1,10 @@
 """Training entry point, run as ``python -m ppst_tpu_torch.train`` (counterpart
 of the JAX package's ``train.py``; reference train.py).
 
-The flags keep the JAX CLI's names and defaults (ppst_tpu/options,
-options/flags.py, the optimizer's, the datasets', the iteration counter's
-and the selected evaluators'), for every flag this package ports. Added:
+The JAX package's command lines run unchanged (``options.TrainOptions``:
+its flags, the two-pass plugin parse, ``opt.txt`` and ``opt.pkl``), plus
 ``--device`` (CUDA unless ``--device cpu``; it raises when CUDA is asked for
-and absent). Refused with a message: the serving evaluators, which run
-through ``python -m ppst_tpu_torch.test``.
+and absent).
 
 One process per GPU: ``torchrun --nproc_per_node N -m ppst_tpu_torch.train
 --num_gpus N ...`` (or the JAX package's ``PPST_NUM_PROCESSES``,
@@ -38,7 +36,6 @@ SIGTERM and SIGINT save a checkpoint before the process exits.
 
 from __future__ import annotations
 
-import argparse
 import contextlib
 import os
 import signal
@@ -48,10 +45,10 @@ import torch
 
 from ppst_tpu_torch import parallel
 from ppst_tpu_torch.data import create_dataset
-from ppst_tpu_torch.data.celebamask_dataset import CelebAMaskDataset
 from ppst_tpu_torch.evaluation import GroupEvaluator
-from ppst_tpu_torch.optimizers.ppst_optimizer import PPSTOptimizer
-from ppst_tpu_torch.options import add_loader_flags, add_network_flags, str2bool
+from ppst_tpu_torch.models.ppst import resolve_device
+from ppst_tpu_torch.optimizers import create_optimizer
+from ppst_tpu_torch.options import TrainOptions, module_command
 from ppst_tpu_torch.train.bundle import create_model
 from ppst_tpu_torch.util.iter_counter import IterationCounter
 from ppst_tpu_torch.util.metric_tracker import MetricTracker
@@ -59,88 +56,33 @@ from ppst_tpu_torch.util.util import save_image, tensor2im, tile_images
 from ppst_tpu_torch.util.visualizer import Visualizer
 
 
-def build_parser():
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    a = p.add_argument
-    # base options (ppst_tpu/options/__init__.py)
-    a("--name", type=str, required=True, help="name of the experiment")
-    a("--num_gpus", type=int, default=1,
-      help="the number of ranks the launcher started (torchrun's WORLD_SIZE), or 0")
-    a("--checkpoints_dir", type=str, default="./checkpoints/")
-    a("--model", type=str, default="ppst", choices=["ppst"])
-    a("--optimizer", type=str, default="ppst", choices=["ppst"])
-    a("--phase", type=str, default="train")
-    a("--resume_iter", type=str, default="latest")
-    a("--num_classes", type=int, default=0)
-    a("--seed", type=int, default=0)
-    a("--batch_size", type=int, default=2)
-    add_loader_flags(p, "scale_width_and_crop")
-    a("--shuffle_dataset", type=str, default=None, choices=("true", "false"))
-    a("--dataroot", type=str, default=".")
-    a("--dataroot2", type=str, default=".")
-    a("--dataset_mode", type=str, default="celebamask", help="celebamask or synthetic")
-    for name, default in (("netG", "StyleGAN2Resnet"), ("netD", "StyleGAN2"),
-                          ("netE1", "StyleGAN2Resnet"), ("netE2", "StyleGAN2Resnet")):
-        a(f"--{name}", default=default, choices=[default])
-    a("--dtype", type=str, default="float32", choices=("float32", "bfloat16"))
-    a("--remat_taps", type=str2bool, default=False)
-    a("--remat_blocks", type=str2bool, default=False)
-    a("--fused_tap", type=str2bool, default=False)
-    a("--local-rank", type=int, default=0, help="accepted for launchers; unused")
-    a("--profile_dir", type=str, default=None,
-      help="write a torch.profiler trace of steps 10-14 to this directory")
-    a("--debug_nan", type=str2bool, default=False)
-    a("--continue_train", type=str2bool, default=False)
-    a("--pretrained_name", type=str, default=None)
-    # model and network flags (ppst_tpu/options/flags.py)
-    add_network_flags(p)
-    a("--training_stage", type=int, default=2)
-    a("--match_kernel", type=int, default=1)
-    for name, default in (("lambda_R1", 10.0), ("lambda_L1", 3.0), ("lambda_GAN", 1.0),
-                          ("lambda_StyleCon", 1.0), ("lambda_Maskwarp", 10.0),
-                          ("lambda_Cycwarp", 5.0), ("nce_T", 0.07)):
-        a(f"--{name}", type=float, default=default)
-    # optimizer (ppst_tpu/optimizers/ppst_optimizer.py)
-    a("--lr", default=0.001, type=float)
-    a("--beta1", default=0.0, type=float)
-    a("--beta2", default=0.99, type=float)
-    a("--R1_once_every", default=16, type=int)
-    # datasets
-    a("--synthetic_size", default=64, type=int)
-    CelebAMaskDataset.modify_commandline_options(p, True)
-    # iteration counter, evaluation and snapshots
-    IterationCounter.modify_commandline_options(p, True)
-    a("--evaluation_metrics", default="none")
-    # this package
-    a("--device", default="cuda")
-    return p
+class CLITrainOptions(TrainOptions):
+    """``TrainOptions`` checked against the launcher's world before rank 0
+    writes ``opt.txt``: ``--num_gpus`` is its size or 0, and ``2 x`` its size
+    divides the global ``--batch_size``. The process joins the world then,
+    on ``--device`` (which must exist), and ``opt.device`` becomes its
+    rank's device."""
+
+    def gather_options(self, command=None):
+        opt = super().gather_options(command)
+        env = parallel.launch_env()
+        world = env["world"] if env else 1
+        if opt.num_gpus not in (0, world):
+            self.parser.error(f"--num_gpus {opt.num_gpus} with {world} process(es): launch "
+                              "one process per GPU (torchrun --nproc_per_node N) and pass "
+                              "--num_gpus N")
+        if opt.batch_size % (2 * world):
+            raise ValueError(f"--batch_size {opt.batch_size} is the global batch: 2 x {world} "
+                             "process(es) must divide it (an even batch on every rank)")
+        opt.device = str(parallel.init(resolve_device(opt.device)))
+        return opt
 
 
-def parse(argv=None):
-    parser = build_parser()
-    try:
-        GroupEvaluator.modify_commandline_options(parser, True, argv)
-        opt = parser.parse_args(argv)
-        opt.isTrain = True
-        GroupEvaluator(opt)
-    except ValueError as e:
-        parser.error(str(e))
-    env = parallel.launch_env()
-    world = env["world"] if env else 1
-    if opt.num_gpus not in (0, world):
-        parser.error(f"--num_gpus {opt.num_gpus} with {world} process(es): launch one "
-                     "process per GPU (torchrun --nproc_per_node N) and pass --num_gpus N")
-    return opt
-
-
-def save_options(opt):
-    if not parallel.is_primary():
-        return
-    path = os.path.join(opt.checkpoints_dir, opt.name)
-    os.makedirs(path, exist_ok=True)
-    with open(os.path.join(path, "opt.txt"), "w") as f:
-        for k, v in sorted(vars(opt).items()):
-            f.write(f"{k:>25}: {v}\n")
+def parse(argv=None, options=None):
+    """The training options of ``argv`` (``sys.argv`` by default), by
+    ``options`` (``CLITrainOptions`` by default)."""
+    return (options or CLITrainOptions()).parse(
+        command=module_command("ppst_tpu_torch.train", argv))
 
 
 def side_generator(opt, device, steps: int) -> torch.Generator:
@@ -184,20 +126,14 @@ def step_profiler(profile_dir):
 
 def main(argv=None):
     opt = parse(argv)
-    opt.device = str(parallel.init(opt.device))
-    world = parallel.world_size()
-    if opt.batch_size % (2 * world):
-        raise ValueError(f"--batch_size {opt.batch_size} is the global batch: 2 x {world} "
-                         "process(es) must divide it (an even batch on every rank)")
-    primary = parallel.is_primary()
+    world, primary = parallel.world_size(), parallel.is_primary()
     bundle = create_model(opt)
-    save_options(opt)
     dataset = create_dataset(opt)
     iter_counter = IterationCounter(opt)
     visualizer = Visualizer(opt)
     metric_tracker = MetricTracker(opt)
     evaluators = GroupEvaluator(opt)
-    optimizer = PPSTOptimizer(opt, bundle)
+    optimizer = create_optimizer(opt, bundle)
 
     def save_and_exit(signum, frame):
         print(f"signal {signum}: saving checkpoint before exit", flush=True)

@@ -3,12 +3,22 @@
 
 from __future__ import annotations
 
+import argparse
 import copy
 import importlib
 import os
 
 import numpy as np
 import torch
+
+
+def str2bool(v):
+    """The reference's boolean flag values (yes/no, true/false, t/f, y/n, 1/0)."""
+    if v.lower() in ("yes", "true", "t", "y", "1"):
+        return True
+    if v.lower() in ("no", "false", "f", "n", "0"):
+        return False
+    raise argparse.ArgumentTypeError("Boolean value expected.")
 
 
 def lerp(a, b, r):

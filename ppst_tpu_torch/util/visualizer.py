@@ -14,6 +14,12 @@ from ppst_tpu_torch import parallel
 
 
 class Visualizer:
+    @staticmethod
+    def modify_commandline_options(parser, is_train):
+        # accepted and recorded, as in the JAX package; nothing reads it
+        parser.add_argument("--no_html", type=bool, default=True)
+        return parser
+
     def __init__(self, opt):
         self.primary = parallel.is_primary()
         self.log_name = os.path.join(opt.checkpoints_dir, opt.name, "loss_log.txt")

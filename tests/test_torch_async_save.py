@@ -12,6 +12,7 @@ from test_torch_train_common import NARROW, batch
 
 from ppst_tpu_torch import parallel
 from ppst_tpu_torch.optimizers.ppst_optimizer import PPSTOptimizer
+from ppst_tpu_torch.options import TrainOptions
 from ppst_tpu_torch.train import bundle as bundle_mod
 from ppst_tpu_torch.train import cli
 from ppst_tpu_torch.util.iter_counter import IterationCounter
@@ -124,19 +125,20 @@ def test_other_ranks_write_nothing(trainer, tmp_path, monkeypatch):
     ``iter.txt`` and ``loss_log.txt`` are not written."""
     bundle, _, _ = trainer
     monkeypatch.setattr(parallel, "rank", lambda: 1)
-    opt = cli.parse(_args(tmp_path / "other", "--save_freq", "2"))
+    options = TrainOptions()
+    opt = cli.parse(_args(tmp_path / "other", "--save_freq", "2"), options)
     bundle.opt = opt
     bundle.save(2)
     bundle.save(4, blocking=False)
     bundle.join_pending_save()
-    cli.save_options(opt)
+    options.save_options(opt)
     counter = IterationCounter(opt)
     counter.record_one_iteration()
     vis = Visualizer(opt)
     vis.print_current_losses(0, {}, {"D_real": 1.0})
     assert not (tmp_path / "other").exists()
     monkeypatch.undo()
-    cli.save_options(opt)
+    options.save_options(opt)
     assert (tmp_path / "other" / "run" / "opt.txt").exists()
 
 

@@ -124,6 +124,10 @@ def _imported_roots(path):
 def test_port_imports_no_jax():
     files = sorted((ROOT / "ppst_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    scanned = {f.relative_to(ROOT).as_posix() for f in files}
+    for sub in ("options", "experiments"):
+        assert any(f.startswith(f"ppst_tpu_torch/{sub}/") for f in scanned), sub
+    assert {"ppst_tpu_torch/ops/smooth_filter.py", "ppst_tpu_torch/smooth_filter.py"} <= scanned
     for f in files:
         bad = _imported_roots(f) & {"jax", "jaxlib", "flax", "optax", "msgpack", "ml_dtypes",
                                      "ppst_tpu"}

@@ -19,6 +19,7 @@ from ppst_tpu_torch.data import ConfigurableDataLoader
 from ppst_tpu_torch.data import base_dataset as bd
 from ppst_tpu_torch.data.celebamask_dataset import CelebAMaskDataset
 from ppst_tpu_torch.data.imagefolder_dataset import ImageFolderDataset
+from ppst_tpu_torch.options import TrainOptions
 from ppst_tpu_torch.train import cli
 from ppst_tpu_torch.util.util import copyconf
 
@@ -31,9 +32,12 @@ SIZES = [(53, 37), (45, 70), (27, 21)]
 
 
 def _opt(tmp_path, *extra):
-    return cli.parse(["--name", "x", "--dataroot", str(tmp_path / "img"), "--dataroot2",
+    """The training options of the data layer, without the training CLI's
+    checks of the batch against the world."""
+    return cli.parse(["--name", "x", "--device", "cpu", "--checkpoints_dir", str(tmp_path),
+                      "--dataroot", str(tmp_path / "img"), "--dataroot2",
                       str(tmp_path / "mask"), "--load_size", "40", "--crop_size", "32",
-                      "--seed", "3", *extra])
+                      "--seed", "3", *extra], TrainOptions())
 
 
 def _write_pairs(root, sizes):
@@ -80,7 +84,7 @@ def test_preprocess_modes_match_jax_exactly(tmp_path, mode):
 def test_train_cli_defaults_to_scale_width_and_crop(tmp_path):
     """The train CLI's --preprocess default is JAX's; a 520 x 600 image
     scales to 512 x 591 and is cropped to 512 x 512."""
-    opt = cli.parse(["--name", "x"])
+    opt = cli.parse(["--name", "x", "--device", "cpu", "--checkpoints_dir", str(tmp_path)])
     assert opt.preprocess == "scale_width_and_crop" and opt.preprocess_crop_padding is None
     img = Image.new("RGB", (520, 600))
     params = bd.sample_transform_params(opt, img.size, bd.random.Random(0))

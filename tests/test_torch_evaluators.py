@@ -3,7 +3,6 @@ metric parsing, SSIM / PSNR / LPIPS, the training snapshot's visuals and
 the swap-visualization grid at NARROW in float32 with the same weights, and
 the inference CLI running the loader evaluators."""
 
-import argparse
 from types import SimpleNamespace
 
 import jax
@@ -28,6 +27,8 @@ from ppst_tpu_torch.data import ConfigurableDataLoader
 from ppst_tpu_torch.evaluation import GroupEvaluator, find_evaluator_classes, metrics
 from ppst_tpu_torch.evaluation.swap_visualization_evaluator import SwapVisualizationEvaluator
 from ppst_tpu_torch.models.config import PPSTConfig
+from ppst_tpu_torch.options import AugmentedArgumentParser, module_command
+from ppst_tpu_torch.options import TestOptions as PortTestOptions
 from ppst_tpu_torch.models.ppst import PPSTModel
 from ppst_tpu_torch.ops.lpips import LPIPS
 from ppst_tpu_torch.util.from_flax import lpips_from_flax
@@ -49,19 +50,21 @@ def test_metric_parsing_matches_jax(metrics_flag):
 
 
 def test_group_evaluator_flags_and_refusals():
-    """Each selected evaluator adds its flags; the serving evaluators are not
-    run on the loader; an unknown metric is an error."""
-    parser = argparse.ArgumentParser()
-    parser.add_argument("--evaluation_metrics", default="none")
-    argv = ["--evaluation_metrics", "trainswap_visualization", "--swap_num_columns", "3"]
-    GroupEvaluator.modify_commandline_options(parser, True, argv)
-    opt = parser.parse_args(argv)
+    """``--evaluation_metrics`` and each selected evaluator's flags are added;
+    every evaluator of ppst_tpu's, the serving ones included, runs on the
+    loader; an unknown metric is an error."""
+    parser = AugmentedArgumentParser()
+    parser.custom_command = module_command("ppst_tpu_torch.train", [
+        "--evaluation_metrics", "trainswap_visualization", "--swap_num_columns", "3"])
+    GroupEvaluator.modify_commandline_options(parser, True)
+    opt = parser.parse_args()
     assert opt.swap_num_columns == 3 and opt.swap_num_images == 16
     (ev,) = GroupEvaluator(opt).evaluators
     assert isinstance(ev, SwapVisualizationEvaluator) and ev.target_phase == "train"
-    for bad in ("simple_swapping", "none,content_style_1t1_generation"):
-        with pytest.raises(ValueError, match="ppst_tpu_torch.test"):
-            GroupEvaluator(SimpleNamespace(evaluation_metrics=bad))
+    opt = SimpleNamespace(evaluation_metrics="none,content_style_1t1_generation,simple_swapping")
+    assert [(type(e).__name__, e.target_phase) for e in GroupEvaluator(opt).evaluators] == [
+        ("NoneEvaluator", "test"), ("ContentStyleGridGenerationEvaluator", "test"),
+        ("SimpleSwappingEvaluator", "test")]
     with pytest.raises(ValueError, match="no evaluator"):
         find_evaluator_classes(SimpleNamespace(evaluation_metrics="fid"))
 
@@ -132,8 +135,11 @@ def test_test_cli_runs_swap_visualization(models, tmp_path, rng):
     for i in range(3):
         Image.fromarray((rng.random((70, 64, 3)) * 255).astype(np.uint8)).save(
             data / f"{i}.png")
-    args = ["--device", "cpu", "--dataroot", str(data), "--load_size", "64", "--crop_size",
-            "64", "--preprocess", "scale_width_and_crop", "--result_dir",
+    weights = tmp_path / "seed.pth"
+    torch.save(models[0].state_dict(), weights)
+    args = ["--device", "cpu", "--name", "ppst", "--checkpoint", str(weights),
+            "--dataset_mode", "imagefolder", "--dataroot", str(data), "--load_size", "64",
+            "--crop_size", "64", "--preprocess", "scale_width_and_crop", "--result_dir",
             str(tmp_path / "res"), "--swap_num_columns", "2", "--swap_num_images", "4",
             "--nThreads", "2", *WIDTH_FLAGS]
     test_cli.main(["--evaluation_metrics", "swap_visualization,none", *args])
@@ -145,12 +151,13 @@ def test_test_cli_runs_swap_visualization(models, tmp_path, rng):
     assert shapes == [(192, 192, 3), (128, 128, 3)]
     for p in grids:
         assert len(np.unique(np.asarray(Image.open(p)))) > 2
-    with pytest.raises(SystemExit):
+    with pytest.raises(SystemExit):  # simple_swapping without its two images
         test_cli.main(["--evaluation_metrics", "swap_visualization,simple_swapping", *args])
 
-    opt = test_cli.build_parser().parse_args(["--dataroot", str(data), "--preprocess",
-                                              "resize", "--load_size", "64"])
-    opt.phase, opt.isTrain, opt.evaluation_metrics = "train", False, "testnone"
+    opt = PortTestOptions().parse(command=module_command(
+        "ppst_tpu_torch.test", ["--name", "x", "--dataset_mode", "imagefolder", "--dataroot",
+                                str(data), "--preprocess", "resize", "--load_size", "64"]))
+    opt.phase, opt.evaluation_metrics = "train", "testnone"
     loader = ConfigurableDataLoader(opt)
     try:
         GroupEvaluator(opt).evaluate(models[0], loader)

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 from PIL import Image
+from test_torch_train_common import seed_checkpoint
 
 from ppst_tpu.models.config import PPSTConfig as JaxConfig
 from ppst_tpu.models.ppst import PPSTModel as JaxModel
@@ -125,9 +126,10 @@ def _folder(root, sizes):
 
 
 def _grid_args(tmp_path, data, *extra):
-    return ["--dataset_mode", "imagefolder", "--dataroot", str(data),
+    return ["--name", "ppst", "--dataset_mode", "imagefolder", "--dataroot", str(data),
             "--evaluation_metrics", "content_style_1t1_generation", "--load_size", "64",
-            "--crop_size", "64", "--result_dir", str(tmp_path / "results"), *extra]
+            "--crop_size", "64", "--result_dir", str(tmp_path / "results"),
+            "--checkpoint", seed_checkpoint(tmp_path / "seed.pth", crop_size=CROP), *extra]
 
 
 def test_grid_cli_writes_page_on_cpu(tmp_path):
@@ -153,9 +155,9 @@ def test_grid_cli_mixed_shapes_run_per_pair(tmp_path, monkeypatch):
     monkeypatch.setattr(ContentStyleGridGenerationEvaluator, "_evaluate_pairwise",
                         lambda self, *a: calls.append(1) or per_pair(self, *a))
     data = _folder(tmp_path / "imgs", [("content", [(64, 80)]), ("style", [(64, 64)] * 2)])
-    page = cli.main(["--device", "cpu", "--preprocess", "scale_shortside", "--batch_size", "1",
-                     *_grid_args(tmp_path, data)])
-    assert calls == [1] and Path(page).exists()
+    (ev,) = cli.main(["--device", "cpu", "--preprocess", "scale_shortside", "--batch_size",
+                      "1", *_grid_args(tmp_path, data)]).evaluators
+    assert calls == [1] and Path(ev.page).exists()
     shapes = sorted(np.asarray(Image.open(p)).shape
                     for p in (tmp_path / "results").rglob("*.png"))
     # blank + 2 styles at 64x64; the content and its 2 stylizations at 64x80

@@ -245,11 +245,12 @@ def test_stylize_from_the_checkpoint_matches_jax(jax_run, rng, tmp_path):
     for name, arr in (("content", content), ("style", style)):
         imgs.append(str(tmp_path / f"{name}.png"))
         Image.fromarray(((arr[0] + 1) * 127.5).astype(np.uint8)).save(imgs[-1])
-    out = test_cli.main(["--device", "cpu", "--checkpoint", path, "--input_structure_image",
-                         imgs[0], "--input_texture_image", imgs[1], "--preprocess", "resize",
-                         "--load_size", "64", "--crop_size", "64", "--result_dir",
-                         str(tmp_path / "res"), *WIDTH_FLAGS])
-    assert np.asarray(Image.open(out[0])).shape == (64, 64, 3)
+    (ev,) = test_cli.main(["--device", "cpu", "--name", "ppst", "--checkpoint", path,
+                           "--evaluation_metrics", "simple_swapping", "--input_structure_image",
+                           imgs[0], "--input_texture_image", imgs[1], "--preprocess", "resize",
+                           "--load_size", "64", "--crop_size", "64", "--result_dir",
+                           str(tmp_path / "res"), *WIDTH_FLAGS]).evaluators
+    assert np.asarray(Image.open(ev.paths[0])).shape == (64, 64, 3)
 
 
 def test_resumed_d_step_matches_jax(jax_run):

@@ -10,6 +10,8 @@ import sys
 import numpy as np
 import pytest
 from PIL import Image
+from test_torch_train_common import NARROW as NARROW_D
+from test_torch_train_common import seed_checkpoint
 
 from ppst_tpu.data import ConfigurableDataLoader as JaxLoader
 from ppst_tpu.data.dataset_tools import images_to_pack as jax_images_to_pack
@@ -167,13 +169,14 @@ def test_grid_from_pack_equals_grid_from_folder(tmp_path, rng):
             Image.fromarray((rng.random((64, 64, 3)) * 255).astype(np.uint8)).save(
                 root / sub / f"{sub}{i}.png")
     dataset_tools.images_to_pack(str(root), str(tmp_path / "grid.pak"))
+    weights = seed_checkpoint(tmp_path / "seed.pth", **NARROW_D)
     pages = {}
     for mode, dataroot in (("imagefolder", root), ("lmdb", tmp_path / "grid.pak")):
-        test_cli.main(["--device", "cpu", "--evaluation_metrics",
+        test_cli.main(["--device", "cpu", "--name", "ppst", "--evaluation_metrics",
                        "content_style_grid_generation", "--dataset_mode", mode, "--dataroot",
                        str(dataroot), "--preprocess", "resize", "--load_size", "64",
                        "--crop_size", "64", "--result_dir", str(tmp_path / mode),
-                       *NARROW_FLAGS])
+                       "--checkpoint", weights, *NARROW_FLAGS])
         pages[mode] = (tmp_path / mode / "ppst" / "results" / "contentstylegridgeneration"
                        / "test_latest" / "images")
     files = sorted(p.name for p in pages["imagefolder"].iterdir())

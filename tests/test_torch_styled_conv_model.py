@@ -19,7 +19,7 @@ import pytest
 import torch
 from PIL import Image
 from test_torch_train_common import NARROW as NARROW_D
-from test_torch_train_common import batch, grad_tree, jax_params
+from test_torch_train_common import batch, grad_tree, jax_params, seed_checkpoint
 
 from ppst_tpu.models.config import PPSTConfig as JaxConfig
 from ppst_tpu.models.generator import Generator as JaxG
@@ -308,17 +308,20 @@ def _cli_args(tmp_path, rng):
         p = tmp_path / f"{name}.png"
         Image.fromarray((rng.random((72, 80, 3)) * 255).astype(np.uint8)).save(p)
         paths.append(str(p))
-    return ["--evaluation_metrics", "simple_swapping", "--input_structure_image", paths[0],
-            "--input_texture_image", paths[1], "--preprocess", "resize", "--load_size", "64",
-            "--crop_size", "64", "--result_dir", str(tmp_path / "results")]
+    return ["--name", "ppst", "--evaluation_metrics", "simple_swapping",
+            "--input_structure_image", paths[0], "--input_texture_image", paths[1],
+            "--preprocess", "resize", "--load_size", "64", "--crop_size", "64", "--result_dir",
+            str(tmp_path / "results"),
+            "--checkpoint", seed_checkpoint(tmp_path / "seed.pth", crop_size=64)]
 
 
 def test_cli_fused_styled_conv_writes_png(tmp_path, rng):
     """``python -m ppst_tpu_torch.test --fused_styled_conv true``: full width
     at crop 64, bf16, the fused chains' plain versions on the CPU."""
-    out = test_cli.main(_cli_args(tmp_path, rng) + [
+    (ev,) = test_cli.main(_cli_args(tmp_path, rng) + [
         "--device", "cpu", "--dtype", "bfloat16", "--fused_tap", "true",
-        "--fused_styled_conv", "true"])
+        "--fused_styled_conv", "true"]).evaluators
+    out = ev.paths
     assert [p.rsplit("/", 1)[1] for p in out] == ["content_style_1.00.png"]
     assert np.asarray(Image.open(out[0])).shape == (64, 64, 3)
 

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 from PIL import Image
+from test_torch_train_common import seed_checkpoint
 
 from ppst_tpu.models.config import PPSTConfig as JaxConfig
 from ppst_tpu.models.generator import Generator as JaxG
@@ -116,18 +117,20 @@ def _cli_args(tmp_path, rng):
         p = tmp_path / f"{name}.png"
         Image.fromarray(arr).save(p)
         paths.append(str(p))
-    return ["--evaluation_metrics", "simple_swapping",
+    return ["--name", "ppst", "--evaluation_metrics", "simple_swapping",
             "--input_structure_image", paths[0], "--input_texture_image", paths[1],
             "--preprocess", "resize", "--load_size", "64", "--crop_size", "64",
-            "--result_dir", str(tmp_path / "results")]
+            "--result_dir", str(tmp_path / "results"),
+            "--checkpoint", seed_checkpoint(tmp_path / "seed.pth", crop_size=64)]
 
 
 def test_cli_writes_png_on_cpu(tmp_path, rng):
     """Full-width model at crop 64, bf16 with the fused tap (its plain
     version on the CPU), two texture mix alphas."""
-    out = cli.main(_cli_args(tmp_path, rng) + [
+    (ev,) = cli.main(_cli_args(tmp_path, rng) + [
         "--device", "cpu", "--dtype", "bfloat16", "--fused_tap", "true",
-        "--texture_mix_alphas", "0.5", "1.0"])
+        "--texture_mix_alphas", "0.5", "1.0"]).evaluators
+    out = ev.paths
     assert [p.rsplit("/", 1)[1] for p in out] == ["content_style_0.50.png",
                                                    "content_style_1.00.png"]
     for p in out:

@@ -39,9 +39,9 @@ from test_torch_train_common import (NARROW, assert_grads, assert_losses, batch,
 
 from ppst_tpu_torch.models.config import PPSTConfig
 from ppst_tpu_torch.models.generator import make_fixed_noise
-from ppst_tpu_torch.models.ppst import PPSTModel
+from ppst_tpu_torch.models.ppst import KernelRecomputeCounter, PPSTModel
 from ppst_tpu_torch.ops import tap_cuda
-from ppst_tpu_torch.train.steps import TrainSteps
+from ppst_tpu_torch.train.steps import TrainSteps, make_optimizers
 
 KNOBS = dict(corr_blockwise=True, unbatch_passes=True, remat=True, remat_nets="all",
              remat_taps=True, remat_blocks=True)
@@ -121,10 +121,71 @@ def test_remat_blocks_refuses_generator_drawn_noise():
         model.G(sp, gl, generator=torch.Generator().manual_seed(0))
 
 
-def test_remat_save_kernels_still_refused():
-    with pytest.raises(NotImplementedError, match="remat_save_kernels"):
-        PPSTConfig(remat_save_kernels=True)
-    PPSTConfig(**KNOBS)
+SAVE_KERNELS = dict(remat=True, remat_nets="all", unbatch_passes=True, remat_save_kernels=True)
+
+
+@pytest.mark.parametrize("kind", ["d", "g"])
+def test_remat_save_kernels_is_bit_exact(kind):
+    """remat_save_kernels keeps the prepared kernels across the checkpointed
+    passes (every pass, D's too: remat_nets="all", unbatch_passes) instead of
+    preparing them again in the recompute: a D or G step through
+    ``TrainSteps`` gives the losses and post-step parameters of the same step
+    with the knob off, bit for bit."""
+    real, mask = batch(1)
+    runs = []
+    for knob in (False, True):
+        model = PPSTModel(PPSTConfig(**NARROW, **dict(SAVE_KERNELS, remat_save_kernels=knob)),
+                          device="cpu")
+        steps = TrainSteps(model, make_optimizers(model))
+        step = steps.d_step if kind == "d" else steps.g_step
+        losses = step(torch.from_numpy(real), torch.from_numpy(mask),
+                      torch.Generator().manual_seed(0))
+        runs.append(({k: v.item() for k, v in losses.items()},
+                     {k: v.clone() for k, v in model.state_dict().items()}))
+    (off_losses, off_params), (on_losses, on_params) = runs
+    assert on_losses == off_losses and len(on_losses) > 3
+    for k, v in off_params.items():
+        assert torch.equal(on_params[k], v), k
+    init = PPSTModel(PPSTConfig(**NARROW), device="cpu").state_dict()
+    assert any(not torch.equal(v, init[k]) for k, v in on_params.items())  # the step moved
+
+
+@pytest.mark.parametrize("kind", ["d", "g"])
+def test_remat_save_kernels_keeps_the_prepared_kernels(kind):
+    """With the knob on, the backward's recompute prepares no kernel again
+    (it takes the kept ones); with it off, it prepares them again: the
+    operations of ``saveable_kernel()`` that a D or G step's backward runs,
+    counted by ``KernelRecomputeCounter``."""
+    real, mask = batch(1)
+    counts = {}
+    for knob in (False, True):
+        model = PPSTModel(PPSTConfig(**NARROW, **dict(SAVE_KERNELS, remat_save_kernels=knob)),
+                          device="cpu")
+        steps = TrainSteps(model, make_optimizers(model))
+        step = steps.d_step if kind == "d" else steps.g_step
+        with KernelRecomputeCounter() as counter:
+            step(torch.from_numpy(real), torch.from_numpy(mask), torch.Generator().manual_seed(0))
+        counts[knob] = counter.count
+    assert counts[True] == 0 and counts[False] > 0, counts
+
+
+@pytest.fixture(scope="module")
+def save_kernels_setup():
+    model = PPSTModel(PPSTConfig(**NARROW, **SAVE_KERNELS), device="cpu")
+    real, mask = batch(1)
+    (want,) = jax_references(model, [(real, mask)], kinds=("d", "g"), **SAVE_KERNELS)
+    return model, real, mask, want
+
+
+@pytest.mark.parametrize("kind", ["d", "g"])
+def test_remat_save_kernels_matches_jax(save_kernels_setup, kind):
+    """The D and G steps' losses and gradients with remat_save_kernels on
+    against ppst_tpu's with the same knobs (its save_only_these_names
+    policy), within tests/test_torch_train.py's bounds."""
+    model, real, mask, want = save_kernels_setup
+    losses, grads, _ = port_step(model, kind, real, mask)
+    assert_losses(losses, want[kind][0])
+    assert_grads(grads, want[kind][1], l2_prefixes=TIE_REACH, l2_bound=TIE_L2)
 
 
 @pytest.mark.parametrize("knobs,k1_per_g", [(KNOBS, 3), (dict(corr_blockwise=True), 2)],

@@ -135,11 +135,12 @@ def test_checkpoint_serves_in_jax_and_in_the_port(trained, rng, tmp_path):
         p = tmp_path / f"{name}.png"
         Image.fromarray((rng.random((64, 64, 3)) * 255).astype(np.uint8)).save(p)
         imgs.append(str(p))
-    out = test_cli.main(["--device", "cpu", "--checkpoint", path, "--input_structure_image",
-                         imgs[0], "--input_texture_image", imgs[1], "--preprocess", "resize",
-                         "--load_size", "64", "--crop_size", "64",
-                         "--result_dir", str(tmp_path / "res"), *WIDTH_FLAGS])
-    assert np.asarray(Image.open(out[0])).shape == (64, 64, 3)
+    (ev,) = test_cli.main(["--device", "cpu", "--name", "ppst", "--checkpoint", path,
+                           "--evaluation_metrics", "simple_swapping", "--input_structure_image",
+                           imgs[0], "--input_texture_image", imgs[1], "--preprocess", "resize",
+                           "--load_size", "64", "--crop_size", "64",
+                           "--result_dir", str(tmp_path / "res"), *WIDTH_FLAGS]).evaluators
+    assert np.asarray(Image.open(ev.paths[0])).shape == (64, 64, 3)
 
 
 def _losses(run_dir):
@@ -197,7 +198,7 @@ def test_train_cli_snapshots_and_swap_visualization(tmp_path):
 
 def test_train_cli_refusals(tmp_path, monkeypatch):
     """--num_gpus 2 in a process that no launcher started (a world of one) is
-    refused, and the serving evaluators as belonging to the inference CLI; a
+    refused, and simple_swapping without its two images, as in ppst_tpu; a
     global batch that 2 x the world size does not divide is refused before
     anything is written; without a card and without --device cpu the CLI
     raises before writing."""
@@ -235,7 +236,8 @@ def test_celebamask_items_match_jax(tmp_path):
     """Image from dataroot, 3-class one-hot mask from dataroot2, one shared
     flip per item: the same arrays as ppst_tpu's dataset, item for item."""
     _write_celebamask(tmp_path)
-    opt = cli.parse(["--name", "x", "--dataroot", str(tmp_path / "img"), "--dataroot2",
+    opt = cli.parse(["--name", "x", "--device", "cpu", "--checkpoints_dir", str(tmp_path),
+                     "--dataroot", str(tmp_path / "img"), "--dataroot2",
                      str(tmp_path / "mask"), "--load_size", "32", "--crop_size", "32",
                      "--preprocess", "resize"])
     port, ref = CelebAMaskDataset(opt), JaxCelebAMask(opt)
@@ -254,7 +256,8 @@ def test_data_at_crop_1024(tmp_path):
     """1024px training data: the synthetic and CelebAMask (resize) items and
     the loader's batches are 1024 x 1024, the same arrays as ppst_tpu's."""
     _write_celebamask(tmp_path, n=2)
-    opt = cli.parse(["--name", "x", "--dataroot", str(tmp_path / "img"), "--dataroot2",
+    opt = cli.parse(["--name", "x", "--device", "cpu", "--checkpoints_dir", str(tmp_path),
+                     "--dataroot", str(tmp_path / "img"), "--dataroot2",
                      str(tmp_path / "mask"), "--load_size", "1024", "--crop_size", "1024",
                      "--batch_size", "2", "--nThreads", "2", "--preprocess", "resize"])
     a, b = CelebAMaskDataset(opt)[1], JaxCelebAMask(opt)[1]
@@ -268,10 +271,11 @@ def test_data_at_crop_1024(tmp_path):
     np.testing.assert_array_equal(port["mask_A"], ref["mask_A"])
 
 
-def test_loader_batches_match_jax():
+def test_loader_batches_match_jax(tmp_path):
     """The training loader's batches, across an epoch boundary (reshuffled
     with random.Random(1000 + epoch)), equal ppst_tpu's."""
-    opt = cli.parse(["--name", "x", "--dataset_mode", "synthetic", "--synthetic_size", "5",
+    opt = cli.parse(["--name", "x", "--device", "cpu", "--checkpoints_dir", str(tmp_path),
+                     "--dataset_mode", "synthetic", "--synthetic_size", "5",
                      "--crop_size", "32", "--batch_size", "2", "--nThreads", "2"])
     port, ref = ConfigurableDataLoader(opt), JaxLoader(opt)
     for _ in range(5):

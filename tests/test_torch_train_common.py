@@ -13,11 +13,21 @@ import torch
 from ppst_tpu.models.config import PPSTConfig as JaxConfig
 from ppst_tpu.models.ppst import PPSTModel as JaxModel
 from ppst_tpu.util.convert_torch import convert_reference_state_dict
+from ppst_tpu_torch.models.config import PPSTConfig
+from ppst_tpu_torch.models.ppst import PPSTModel
 from ppst_tpu_torch.train.steps import GE_KEYS
 
 NARROW = dict(crop_size=64, netE_scale_capacity=0.25, netE2_scale_capacity=0.25,
               global_code_ch=64, spatial_code_ch=16, netG_resnet_ch=32,
               netG_scale_capacity=0.125, netD_scale_capacity=0.125)
+
+
+def seed_checkpoint(path, seed=0, **cfg):
+    """A checkpoint of the weights ``PPSTModel(PPSTConfig(**cfg))`` draws from
+    ``seed``, for ``python -m ppst_tpu_torch.test --checkpoint``, which
+    serves no weights it does not load."""
+    torch.save(PPSTModel(PPSTConfig(**cfg), device="cpu", seed=seed).state_dict(), path)
+    return str(path)
 
 
 def jax_params(model):
@@ -94,9 +104,9 @@ def jax_reference(model, real, mask, **cfg):
     return jax_references(model, [(real, mask)], **cfg)[0]
 
 
-def jax_references(model, batches, **cfg):
+def jax_references(model, batches, kinds=("d", "r1", "g"), **cfg):
     """``jax_reference`` for each (real, mask) of ``batches``, from one
-    compilation of each step."""
+    compilation of each step of ``kinds``."""
     jmodel = JaxModel(JaxConfig(**dict(NARROW, **cfg)), lpips_variables=jax_lpips(model.lpips))
     params, state = jax_params(model), jax_state(model)
 
@@ -120,11 +130,17 @@ def jax_references(model, batches, **cfg):
     out = []
     for real, mask in batches:
         jr, jm = jnp.asarray(real), jnp.asarray(mask)
-        (_, d_l), d_g = d_fn(params["D"], params, jr, jm)
-        (_, r1_l), r1_g = r1_fn(params["D"], params, jr)
-        (_, (g_l, g_m, g_state)), g_g = g_fn(ge, params, jr, jm)
-        out.append({"d": (d_l, {"D": d_g}), "r1": (r1_l, {"D": r1_g}),
-                    "g": (dict(g_l, **g_m), g_g), "g_state": g_state})
+        ref = {}
+        if "d" in kinds:
+            (_, d_l), d_g = d_fn(params["D"], params, jr, jm)
+            ref["d"] = (d_l, {"D": d_g})
+        if "r1" in kinds:
+            (_, r1_l), r1_g = r1_fn(params["D"], params, jr)
+            ref["r1"] = (r1_l, {"D": r1_g})
+        if "g" in kinds:
+            (_, (g_l, g_m, g_state)), g_g = g_fn(ge, params, jr, jm)
+            ref["g"], ref["g_state"] = (dict(g_l, **g_m), g_g), g_state
+        out.append(ref)
     return out
 
 
