@@ -42,6 +42,14 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    blockwise differentiable correspondence, unbatched D passes, nested
    remat; K1 three times a G step, K3 and K6 never), and again with the
    blockwise correspondence alone;
+   validate: the training-validation tools at 256px, batch 2 (their own
+   synthetic stream; 36 D + G iterations, lazy R1 in the 1st, 17th, 33rd):
+   ``tools/bf16_validation.py``'s float32 run, its bf16 run with the fused
+   tap (K1, K2) and with the fused StyledConv too (K6 and its backward),
+   each bf16 run's G-side tail means against float32's within a bound, then
+   ``tools/lpips_ablation.py``'s runs with the cycle-warp LPIPS term on and
+   off; each run finite, every network moving, each kernel launched as its
+   configuration says;
 6. reference: a narrow float32 model at crop 64 on the card against the CPU
    run of the same code (``stylize``, ``stylize_fused``, blockwise
    ``grid_pairs``; the D step's, the R1 penalty's and the G step's losses
@@ -206,6 +214,21 @@ TRAIN_1024_KNOBS = dict(corr_blockwise=True, unbatch_passes=True, remat=True, re
                         remat_taps=True, remat_blocks=True)
 K5_CASES = [((8, 512, 512, 128), torch.bfloat16), ((8, 512, 512, 128), torch.float32),
             ((3, 17, 9, 40), torch.bfloat16), ((2, 5, 7, 13), torch.bfloat16)]
+# the validate phase: tools/bf16_validation.py's float32 run and two bf16 runs
+# (the fused tap; the fused tap and the fused StyledConv) at 256px, batch 2,
+# for VALIDATE_STEPS D + G iterations (lazy R1 in iterations 0, 16 and 32),
+# then tools/lpips_ablation.py's two runs for LPIPS_STEPS. Each bf16 run's
+# tail means of the generator's losses (bf16_validation.G_SIDE, over the last
+# quarter) within VALIDATE_G_REL of the float32 run's, relatively: >= 3x the
+# largest gap after 33-48 iterations of an H100's 120-iteration runs (PERF.md
+# section 6, run V2), the two bf16 runs against float32 and the two float32
+# runs against each other (G_L1 0.070, G_GAN_rec 0.067, G_styleContmix
+# 0.057, Mask_warp 0.026, image_warp_reg 0.180, the last between the two
+# float32 runs). The D-side losses sit near 0 and are reported only.
+VALIDATE_STEPS, LPIPS_STEPS, VALIDATE_CROP, VALIDATE_BATCH = 36, 16, 256, 2
+VALIDATE_G_REL = {"G_L1": 0.21, "G_L1_cyc": 0.21, "L1_dist": 0.21, "G_GAN_mix": 0.2,
+                  "G_GAN_rec": 0.21, "G_styleContmix": 0.18, "G_styleContrec": 0.14,
+                  "Mask_warp": 0.08, "image_warp_reg": 0.54}
 
 
 def card_peaks(name):
@@ -1225,6 +1248,83 @@ def train_1024_phase(tap_cuda, cw, sc, PPSTConfig, PPSTModel, card):
     train_phase(tap_cuda, cw, sc, PPSTConfig, PPSTModel, card, rounds=3, crop=1024, batch=2,
                 knobs=dict(corr_blockwise=True), k1_per_g=2)
     return k2
+
+
+def launch_counts():
+    return {k.__name__: k.launches for k in kernel_wrappers()}
+
+
+def validate_phase(card, steps=VALIDATE_STEPS, lpips_steps=LPIPS_STEPS):
+    """The training-validation tools on the card: bf16_validation's float32
+    run and its bf16 runs with the fused tap (K1, K2) and with the fused
+    StyledConv too (K6, K6's backward), then lpips_ablation's two runs
+    (bf16, the fused tap). Each run must be finite and move every network,
+    launch the kernels its configuration runs (K1 once a D step and twice a
+    G step, K2 once a G step, K6 22 a D step and 66 a G step, its backward
+    22 a G step) and no other, and each bf16 run's G-side tail means must
+    stay within VALIDATE_G_REL of the float32 run's. Returns each kernel's
+    launches over the phase."""
+    from ppst_tpu_torch.tools import bf16_validation, lpips_ablation, stream
+
+    arms = [("f32", bf16_validation.run, ("float32",), {}),
+            ("bf16 fused_tap", bf16_validation.run, ("bfloat16",), dict(fused_tap=True)),
+            ("bf16 fused_tap+fused_styled_conv", bf16_validation.run, ("bfloat16",),
+             dict(fused_tap=True, fused_styled_conv=True)),
+            ("lpips A (cycwarp 5)", lpips_ablation.run, (5.0,), dict(fused_tap=True)),
+            ("lpips B (cycwarp 0)", lpips_ablation.run, (0.0,), dict(fused_tap=True))]
+    total, runs, failures = dict.fromkeys(launch_counts(), 0), {}, []
+    for name, fn, args, cfg in arms:
+        n = lpips_steps if fn is lpips_ablation.run else steps
+        seed = lpips_ablation.SEED if fn is lpips_ablation.run else bf16_validation.SEED
+        reset_launches()
+        t0 = time.perf_counter()
+        run = fn(*args, n, VALIDATE_CROP, VALIDATE_BATCH, seed, "cuda", **cfg)
+        secs = time.perf_counter() - t0
+        counts = launch_counts()
+        read_standalone_launches()
+        for k, v in counts.items():
+            total[k] += v
+        torch.cuda.empty_cache()
+        runs[name] = run
+        fused_tap, fused_sc = cfg.get("fused_tap", False), cfg.get("fused_styled_conv", False)
+        want = {"fused_tap_1x1": 3 * n if fused_tap else 0,
+                "fused_tap_1x1_bwd": n if fused_tap else 0,
+                "styled_conv3x3": 88 * n if fused_sc else 0,
+                "styled_conv3x3_bwd": 22 * n if fused_sc else 0}
+        if not stream.finite(run.rows):
+            failures.append(f"{name}: non-finite losses")
+        still = [net for net, d in run.moved.items() if not d > 0]
+        if still:
+            failures.append(f"{name}: {still} did not move")
+        wrong = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
+        wrong.update({k: (v, 0) for k, v in counts.items() if k not in want and v})
+        if wrong:
+            failures.append(f"{name}: launches (counted, expected) {wrong}")
+        record = {"validate": name, "steps": n, "crop": VALIDATE_CROP, "batch": VALIDATE_BATCH,
+                  "run": f"{fn.__module__}.run{args}", "config": cfg,
+                  "seconds": secs, "img_per_sec": run.img_per_sec,
+                  "peak_mem_gib": run.peak_mem_gib, "finite": stream.finite(run.rows),
+                  "moved": run.moved, "launches": counts,
+                  "tail_means": {k: stream.tail_mean(run.rows, k)
+                                 for k in sorted(set().union(*run.rows))}}
+        if name.startswith("bf16"):
+            summary = bf16_validation.summarize(runs["f32"].rows, run.rows)
+            record["rel_to_f32"] = {k: v["rel"] for k, v in summary.items()}
+            over = {k: (summary[k]["rel"], VALIDATE_G_REL[k]) for k in bf16_validation.G_SIDE
+                    if not summary[k]["rel"] <= VALIDATE_G_REL[k]}
+            if over:
+                failures.append(f"{name}: G-side tail means off float32's by (gap, bound) {over}")
+        print(json.dumps(dict(record, card=card)), flush=True)
+    a, b = runs["lpips A (cycwarp 5)"], runs["lpips B (cycwarp 0)"]
+    if not (all(r["image_warp_reg"] > 0 for r in a.rows)
+            and not any("image_warp_reg" in r for r in b.rows)):
+        failures.append("lpips ablation: image_warp_reg not in run A only")
+    print(json.dumps({"validate": "lpips_ablation summary",
+                      "summary": lpips_ablation.summarize(a.rows, b.rows), "card": card}),
+          flush=True)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return total
 
 
 def train_reference_check(PPSTConfig, PPSTModel, knobs=None):
@@ -2415,6 +2515,11 @@ def main():
     phase("train 1024px", train_1024_phase, tap_cuda, corr_warp_cuda, styled_conv_cuda,
           PPSTConfig, PPSTModel, card)
     torch.cuda.empty_cache()
+    validated = phase("validate", validate_phase, card)
+    k1_launches += validated["fused_tap_1x1"]
+    k2_launches += validated["fused_tap_1x1_bwd"]
+    k6_launches += validated["styled_conv3x3"]
+    k6b_launches += validated["styled_conv3x3_bwd"]
     phase("reference", small_reference_check, PPSTConfig, PPSTModel)
     phase("reference train", train_reference_check, PPSTConfig, PPSTModel)
     phase("reference train 1024px knobs", train_reference_check, PPSTConfig, PPSTModel,

@@ -24,7 +24,6 @@ import argparse
 import ctypes
 import json
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -34,6 +33,7 @@ import torch.nn.functional as F
 
 from ppst_tpu_torch.ops import _nvcc
 from ppst_tpu_torch.ops import corr_warp_cuda as cw
+from ppst_tpu_torch.tools import card
 
 # the dense bf16 rate of an H100 SXM (NVIDIA's data sheet)
 H100_BF16_FLOPS = 989e12
@@ -41,11 +41,6 @@ H100_BF16_FLOPS = 989e12
 BF16_MAX, BF16_MEAN = 1e-2, 2e-4
 QUICK = [(1, 16384, 16384, 512, 256), (1, 200, 136, 512, 48)]
 TIMED = [(1, 16384, 16384, 512, cv) for cv in (32, 64, 128, 256)] + [(8, 4096, 4096, 512, 256)]
-
-
-def card() -> str:
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
 def build(src: Path):

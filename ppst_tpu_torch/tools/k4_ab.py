@@ -33,7 +33,6 @@ import argparse
 import ctypes
 import json
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -44,6 +43,7 @@ import torch.nn.functional as F
 
 from ppst_tpu_torch.ops import _nvcc
 from ppst_tpu_torch.ops import upfirdn2d_cuda as fir
+from ppst_tpu_torch.tools import card
 
 # the memory rate of an H100 SXM (NVIDIA's data sheet)
 H100_BYTES = 3.35e12
@@ -63,11 +63,6 @@ TIMED = [(shape, dt, BLUR, pad, down)
          for dt in (torch.bfloat16, torch.float32)
          for shape, pad, down in (((8, 512, 512, 128), (2, 1), 1), ((8, 512, 512, 128), (1, 1), 2),
                                   ((8, 128, 128, 512), (2, 1), 1), ((8, 256, 256, 256), (1, 1), 2))]
-
-
-def card() -> str:
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
 def within(got, want):

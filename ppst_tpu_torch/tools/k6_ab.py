@@ -30,7 +30,6 @@ import argparse
 import ctypes
 import json
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -39,6 +38,7 @@ import torch
 
 from ppst_tpu_torch.ops import _nvcc
 from ppst_tpu_torch.ops import styled_conv_cuda as sc
+from ppst_tpu_torch.tools import card
 
 # the dense bf16 rate and memory rate of an H100 SXM (NVIDIA's data sheet)
 H100_BF16_FLOPS, H100_BYTES = 989e12, 3.35e12
@@ -50,11 +50,6 @@ SHAPES = [(8, 64, 64, 256, 384), (8, 64, 64, 512, 512), (8, 128, 128, 512, 512),
           (8, 256, 256, 256, 256), (8, 512, 512, 128, 128), (16, 512, 512, 128, 128),
           (2, 1024, 1024, 128, 128)]
 NAMES = ("dx", "dw", "dgain", "db", "dscale", "dshift")
-
-
-def card() -> str:
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
 def build(csrc: Path):

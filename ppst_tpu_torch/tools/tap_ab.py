@@ -28,7 +28,6 @@ import argparse
 import ctypes
 import json
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -37,6 +36,7 @@ import torch
 
 from ppst_tpu_torch.ops import _nvcc
 from ppst_tpu_torch.ops import tap_cuda
+from ppst_tpu_torch.tools import card
 
 # the dense bf16 rate and memory rate of an H100 SXM (NVIDIA's data sheet)
 H100_BF16_FLOPS, H100_BYTES = 989e12, 3.35e12
@@ -53,11 +53,6 @@ BWD_SHAPES = [(4, 512, 512, 128), (2, 1024, 1024, 128)]
 # t, u, g, x again and writes dx)
 K1_DESIGN_BYTES = 1152
 K2_DESIGN_BYTES = {False: 1280, True: 2176}
-
-
-def card() -> str:
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
 def build(csrc: Path):

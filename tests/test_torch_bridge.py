@@ -128,6 +128,9 @@ def test_port_imports_no_jax():
     for sub in ("options", "experiments"):
         assert any(f.startswith(f"ppst_tpu_torch/{sub}/") for f in scanned), sub
     assert {"ppst_tpu_torch/ops/smooth_filter.py", "ppst_tpu_torch/smooth_filter.py"} <= scanned
+    assert {f"ppst_tpu_torch/tools/{t}.py" for t in (
+        "stream", "bf16_validation", "lpips_ablation", "loss_curve_parity",
+        "multiproc_cli_smoke")} <= scanned
     for f in files:
         bad = _imported_roots(f) & {"jax", "jaxlib", "flax", "optax", "msgpack", "ml_dtypes",
                                      "ppst_tpu"}
