@@ -30,8 +30,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    1024px 2x4 blockwise grid, with pairs/s amortized over extraction;
 5. train: 512px full-width training in bf16 with the fused tap at batch 4
    (D, G and D+R1 steps through ``train.steps``): step times, training
-   images/s, peak memory, every loss, every network moving, one profiled G
-   step, and the launches of K1 and K2 (K2 once per G step) and K3 (none);
+   images/s, peak memory, every loss, every network moving, and the
+   launches of K1 and K2 (K2 once per G step) and K3 (none);
    then ``remat_save_kernels`` off, on, off again and on again (the first
    D and G steps' losses bit-equal, no kernel prepared again in the first
    G backward with the knob on and some without it, its gradients on
@@ -1136,9 +1136,8 @@ def train_phase(tap_cuda, cw, sc, PPSTConfig, PPSTModel, card, fused_styled_conv
     then ``rounds - 1`` timed rounds; with ``fused_styled_conv`` the
     generator's non-upsampled StyledConvs run K6. ``knobs``: more
     configuration fields (the 1024px mode's); ``k1_per_g``: K1's launches in
-    a G step, as the CPU tests count them for that configuration. Then one
-    more G step under torch.profiler. Returns the launches of K2, K6 and
-    K6's backward."""
+    a G step, as the CPU tests count them for that configuration. Returns
+    the launches of K2, K6 and K6's backward."""
     from ppst_tpu_torch.train.steps import TrainSteps
 
     model = PPSTModel(PPSTConfig(crop_size=crop, dtype="bfloat16", fused_tap=True,
@@ -1195,9 +1194,6 @@ def train_phase(tap_cuda, cw, sc, PPSTConfig, PPSTModel, card, fused_styled_conv
     if k6 != want_k6 or k6b != want_k6b:
         raise AssertionError(f"training launched K6 {k6} and K6's backward {k6b} times in "
                              f"{counts} steps ({want_k6} and {want_k6b} expected)")
-    print(json.dumps({"g_step_profile": g_step_profile(steps, real, mask, gen), "crop": crop,
-                      "fused_styled_conv": fused_styled_conv, "knobs": knobs or {},
-                      "card": card}), flush=True)
     print(json.dumps({
         "path": "train", "crop": crop, "batch": batch, "dtype": "bfloat16", "fused_tap": True,
         "fused_styled_conv": fused_styled_conv, "remat_nets": model.cfg.remat_nets,
@@ -1210,38 +1206,15 @@ def train_phase(tap_cuda, cw, sc, PPSTConfig, PPSTModel, card, fused_styled_conv
     return k2, k6, k6b
 
 
-def g_step_profile(steps, real, mask, gen):
-    """Where a G step's time goes: one more step under torch.profiler, its
-    wall time, the device's busy time and share, and the kernels that take
-    the most device time."""
-    prof_acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=prof_acts) as prof:
-        t0 = time.perf_counter()
-        steps.g_step(real, mask, gen)
-        torch.cuda.synchronize()
-        prof_wall = (time.perf_counter() - t0) * 1e3
-
-    def device_us(e):
-        return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
-
-    # the kernels themselves: the operators' events carry their kernels' time too
-    events = sorted((e for e in prof.key_averages()
-                     if e.device_type == torch.autograd.DeviceType.CUDA),
-                    key=device_us, reverse=True)
-    busy = sum(device_us(e) for e in events) / 1e3
-    return {"wall_ms": prof_wall, "device_busy_ms": busy, "busy_share": busy / prof_wall,
-            "top_kernels_ms": [[e.key[:80], device_us(e) / 1e3, e.count] for e in events[:12]]}
-
-
 def train_1024_phase(tap_cuda, cw, sc, PPSTConfig, PPSTModel, card):
     """1024px full-width bf16 training at batch 2 in the JAX package's
-    1024px mode (TRAIN_1024_KNOBS): a warm-up round and two timed rounds, the
-    profiled G step, K1 three times a G step (the nested checkpoint of the
-    tap, counted on the CPU by tests/test_torch_train_blockwise.py), K2 once,
-    K3 and K6 never. Then the same reading with ``corr_blockwise`` alone (G
-    passes recomputed, nothing else): whether the card needs the other memory
-    knobs, compared by the two profiled G steps' device time. Returns K2's
-    launches in the first."""
+    1024px mode (TRAIN_1024_KNOBS): a warm-up round and two timed rounds, K1
+    three times a G step (the nested checkpoint of the tap, counted on the
+    CPU by tests/test_torch_train_blockwise.py), K2 once, K3 and K6 never.
+    Then the same reading with ``corr_blockwise`` alone (G passes recomputed,
+    nothing else): whether the card needs the other memory knobs, compared
+    by the two settings' ``g_step_ms``. Returns K2's launches in the
+    first."""
     k2, _, _ = train_phase(tap_cuda, cw, sc, PPSTConfig, PPSTModel, card, rounds=3, crop=1024,
                            batch=2, knobs=TRAIN_1024_KNOBS, k1_per_g=3)
     torch.cuda.empty_cache()
@@ -1657,7 +1630,9 @@ def cli_train_eval_phase(tap_cuda, card):
             raise AssertionError(f"the swap grid is {grid.shape} or has a flat cell")
         with open(os.path.join(run, "loss_log.txt")) as f:
             log_lines = [line for line in f if line.startswith("(iters:")]
-        data_ms = [float(line.split("data: ")[1].split("ms/img")[0]) for line in log_lines]
+        # a run's first line has no section times yet: each EMA leaves out its cold first sample
+        data_ms = [float(line.split("data: ")[1].split("ms/img")[0]) for line in log_lines
+                   if "data: " in line]
         if len(log_lines) != 12 or "G_styleContmix" not in log_lines[-1]:
             raise AssertionError(f"loss_log.txt has {len(log_lines)} loss lines")
 

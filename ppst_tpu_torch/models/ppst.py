@@ -11,7 +11,10 @@ follows the images' dtype, as in the JAX package. Noise is drawn from the
 ``torch.Generator`` passed in.
 
 The serving methods run under ``torch.inference_mode``; the loss methods
-run with grad, for ``train.steps``.
+run with grad, for ``train.steps``. While a profiler runs, ``stylize`` and
+``stylize_fused`` mark their stages as the spans ``ppst.stylize:extract``,
+``:warp``, ``:decode`` and ``:filter`` (``util.spans``; the last two are
+``decode``'s own).
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from ppst_tpu_torch.ops.guided_filter import guided_filter
 from ppst_tpu_torch.ops.lpips import LPIPS
 from ppst_tpu_torch.util.from_flax import from_flax
 from ppst_tpu_torch.util.msgpack_ckpt import read_checkpoint
+from ppst_tpu_torch.util.spans import span
 from ppst_tpu_torch.util.util import visualize_spatial_code
 
 
@@ -174,13 +178,15 @@ class PPSTModel(nn.Module):
                noises=None):
         """G forward; with ``target`` the guided filter runs on the result
         with ``target`` as its guide. ``noises`` pins the noise injection."""
-        out = self.G(sp, list(gl), noises=noises, generator=generator)
+        with span("stylize:decode"):
+            out = self.G(sp, list(gl), noises=noises, generator=generator)
         if target is None:
             return out
-        out255 = (out.clamp(-1.0, 1.0) + 1.0) * 127.5
-        guide255 = (target.clamp(-1.0, 1.0) + 1.0) * 127.5
-        smoothed = guided_filter(guide255, out255, radius=30, eps=(0.02 * 255.0) ** 2)
-        return smoothed / 127.5 - 1.0
+        with span("stylize:filter"):
+            out255 = (out.clamp(-1.0, 1.0) + 1.0) * 127.5
+            guide255 = (target.clamp(-1.0, 1.0) + 1.0) * 127.5
+            smoothed = guided_filter(guide255, out255, radius=30, eps=(0.02 * 255.0) ** 2)
+            return smoothed / 127.5 - 1.0
 
     def _warp_vectors(self, desc_c, desc_s, trunk_s, blockwise: bool):
         """E2's warped style vectors of the style trunk ``trunk_s`` through the
@@ -219,10 +225,12 @@ class PPSTModel(nn.Module):
         Content and style of one shape are extracted in one batched pass;
         the warp stage reuses that pass's E2 trunk. With ``smooth_target``
         the guided filter runs on the output with the content as its guide."""
-        cb, sb = self._extract_pair(content, style, generator)
-        gl_w = self._warp_vectors(cb["desc"], sb["desc"], sb["trunk"], blockwise=False)
-        if alpha != 1.0:
-            gl_w = [a * (1 - alpha) + w * alpha for a, w in zip(cb["vectors"], gl_w)]
+        with span("stylize:extract"):
+            cb, sb = self._extract_pair(content, style, generator)
+        with span("stylize:warp"):
+            gl_w = self._warp_vectors(cb["desc"], sb["desc"], sb["trunk"], blockwise=False)
+            if alpha != 1.0:
+                gl_w = [a * (1 - alpha) + w * alpha for a, w in zip(cb["vectors"], gl_w)]
         return self.decode(cb["sp"], gl_w, generator,
                            target=content if smooth_target else None)
 
@@ -232,8 +240,10 @@ class PPSTModel(nn.Module):
         """``stylize`` with the correspondence through the blockwise kernel
         (K3), which never holds the L x L matrix: the 1024px path, where the
         dense matrix is 1 GiB a pair in float32."""
-        cb, sb = self._extract_pair(content, style, generator)
-        gl_w = self._warp_vectors(cb["desc"], sb["desc"], sb["trunk"], blockwise=True)
+        with span("stylize:extract"):
+            cb, sb = self._extract_pair(content, style, generator)
+        with span("stylize:warp"):
+            gl_w = self._warp_vectors(cb["desc"], sb["desc"], sb["trunk"], blockwise=True)
         return self.decode(cb["sp"], gl_w, generator,
                            target=content if smooth_target else None)
 

@@ -9,6 +9,8 @@ of the same function. There is no other path.
 
 The kernel is compiled with ``nvcc`` for sm_90a at first use into
 ``ppst_tpu_torch/_build/`` and bound through ``ctypes`` (``ops._nvcc``).
+While a profiler runs, each call's host side on the card is the span
+``ppst.op:corr_warp:<B>,<Lq>,<Lk>,<C>,<Cv>,<itemsize>`` (``util.spans``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 
 from ppst_tpu_torch.ops import _nvcc
 from ppst_tpu_torch.ops.corr import _NORM_EPS
+from ppst_tpu_torch.util.spans import span
 
 # The bf16 kernel keeps 128 query rows x C in shared memory beside the K
 # ring and two V stages: C <= 512 fits at every Cv (224 KB at Cv = 256)
@@ -98,6 +101,11 @@ def corr_warp_blockwise(q, k, v, temperature: float = 0.01):
         return corr_warp_blockwise_reference(q, k, v, temperature)
     if q.device.type != "cuda":
         raise ValueError(f"corr_warp_blockwise: unsupported device {q.device}")
+    with span("op:corr_warp", q.shape[:2], k.shape[1], q.shape[2], v.shape[2], v.element_size()):
+        return _corr_warp_cuda(q, k, v, temperature)
+
+
+def _corr_warp_cuda(q, k, v, temperature):
     bsz, lq, c, lk, cv = check_inputs(q, k, v)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if any(t.data_ptr() % 16 for t in (q, k, v)):

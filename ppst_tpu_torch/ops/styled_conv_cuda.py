@@ -31,7 +31,10 @@ kernels over haloed input windows: a tile of 4 x 64 pixels reads each
 gradient. Without grad (inference, the D step's generator passes) the forward
 runs alone and keeps nothing. The kernels are compiled with ``nvcc`` for
 sm_90a at first use into ``ppst_tpu_torch/_build/`` and bound through
-``ctypes`` (``ops._nvcc``).
+``ctypes`` (``ops._nvcc``). While a profiler runs, each call's host side on
+the card is the span ``ppst.op:styled_conv:<B>,<H>,<W>,<Cin>,<Cout>`` or
+``ppst.op:styled_conv_bwd:<B>,<H>,<W>,<Cin>,<Cout>,<dx>`` (``util.spans``; x's
+shape, the weight's output width, dx 1 where it is computed).
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from ppst_tpu_torch.ops import _nvcc
+from ppst_tpu_torch.util.spans import span
 
 _EPS = 1e-5
 _SLOPE = 0.2
@@ -166,6 +170,11 @@ def _forward(x, w, noise, gain, b_total, s1, shift):
     plain version on the CPU."""
     if x.device.type == "cpu":
         return _forward_reference(x, w, noise, gain, b_total, s1, shift)
+    with span("op:styled_conv", x.shape, w.shape[0]):
+        return _forward_cuda(x, w, noise, gain, b_total, s1, shift)
+
+
+def _forward_cuda(x, w, noise, gain, b_total, s1, shift):
     name = "styled_conv3x3"
     _check(x, w, noise, name)
     bsz, h, wd, cin = x.shape
@@ -286,13 +295,14 @@ def styled_conv3x3_bwd(x, w, noise, a, mean, rstd, s1, g, need_dx=True):
     """
     if x.device.type == "cpu":
         return styled_conv3x3_bwd_reference(x, w, noise, a, mean, rstd, s1, g, need_dx)
-    run, (dx, dw, dgain, db, sums) = _bwd_parts(x, w, noise, a, mean, rstd, s1, g, need_dx)
-    run("dpre")
-    run("dw")
-    if need_dx:
-        run("dx")
-    styled_conv3x3_bwd.launches += 1
-    return dx, dw, dgain, db, sums[:, 2].contiguous(), sums[:, 3].contiguous()
+    with span("op:styled_conv_bwd", x.shape, w.shape[0], int(bool(need_dx))):
+        run, (dx, dw, dgain, db, sums) = _bwd_parts(x, w, noise, a, mean, rstd, s1, g, need_dx)
+        run("dpre")
+        run("dw")
+        if need_dx:
+            run("dx")
+        styled_conv3x3_bwd.launches += 1
+        return dx, dw, dgain, db, sums[:, 2].contiguous(), sums[:, 3].contiguous()
 
 
 class _StyledConv3x3(torch.autograd.Function):

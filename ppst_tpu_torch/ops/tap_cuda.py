@@ -18,6 +18,9 @@ grad (inference) the forward runs alone and keeps no residuals.
 
 The kernels are compiled with ``nvcc`` for sm_90a at first use into
 ``ppst_tpu_torch/_build/`` and bound through ``ctypes`` (``ops._nvcc``).
+While a profiler runs, each call's host side on the card is the span
+``ppst.op:tap_fwd:<B>,<H>,<W>,<Cin>`` or ``ppst.op:tap_bwd:<B>,<H>,<W>,<Cin>,<dx>``
+(``util.spans``; dx 1 where it is computed), beside the ``.launches`` counts.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import math
 import torch
 
 from ppst_tpu_torch.ops import _nvcc
+from ppst_tpu_torch.util.spans import span
 
 _EPS = 1e-5
 _CIN, _COUT = 128, 64
@@ -157,6 +161,11 @@ def _forward(x, w1, b1, a1, w2, b2, a2):
     version on the CPU."""
     if x.device.type == "cpu":
         return _forward_reference(x, w1, b1, a1, w2, b2, a2)
+    with span("op:tap_fwd", x.shape):
+        return _forward_cuda(x, w1, b1, a1, w2, b2, a2)
+
+
+def _forward_cuda(x, w1, b1, a1, w2, b2, a2):
     check_inputs(x, w1, b1, a1, w2, b2, a2)
     bsz, h, w, cin = x.shape
     n = h * w
@@ -224,6 +233,11 @@ def fused_tap_1x1_bwd(x, t, u, mr, w1, w2, a1, a2, g, need_dx=True):
     """
     if x.device.type == "cpu":
         return fused_tap_1x1_bwd_reference(x, t, u, mr, w1, w2, a1, a2, g, need_dx)
+    with span("op:tap_bwd", x.shape, int(bool(need_dx))):
+        return _bwd_cuda(x, t, u, mr, w1, w2, a1, a2, g, need_dx)
+
+
+def _bwd_cuda(x, t, u, mr, w1, w2, a1, a2, g, need_dx):
     check_inputs(x, w1, None, a1, w2, None, a2, t=t, u=u, mr=mr, g=g, name="fused_tap_1x1_bwd")
     bsz, h, w, _ = x.shape
     n = h * w

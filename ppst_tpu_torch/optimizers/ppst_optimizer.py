@@ -8,7 +8,9 @@ optimizers/ppst_optimizer.py).
 * ``train_one_step(data_i, steps)`` returns the step's losses as floats,
   fetched from the device in one transfer; under ``torch.distributed`` they
   are averaged over the ranks first (one small collective), which makes
-  them the global batch's means that the JAX package logs;
+  them the global batch's means that the JAX package logs. While a
+  profiler runs, the spans ``ppst.step:inputs`` and ``ppst.step:fetch``
+  mark the batch's copy to the device and the losses' way back;
 * ``get_visuals_for_snapshot(data_i, generator)``: the training snapshot.
 """
 
@@ -21,6 +23,7 @@ import torch
 
 from ppst_tpu_torch import parallel
 from ppst_tpu_torch.train.steps import TrainSteps
+from ppst_tpu_torch.util.spans import span
 
 
 class PPSTOptimizer:
@@ -59,7 +62,8 @@ class PPSTOptimizer:
         return mode
 
     def train_one_step(self, data_i, total_steps_so_far) -> Dict[str, float]:
-        images, mask = self.prepare_images(data_i)
+        with span("step:inputs"):
+            images, mask = self.prepare_images(data_i)
         if self.toggle_training_mode() == "discriminator":
             losses = self.train_discriminator_one_step(images, mask)
         else:
@@ -67,7 +71,9 @@ class PPSTOptimizer:
         if not losses:  # --lambda_GAN 0 skips the D step entirely
             return {}
         keys = list(losses)
-        values = parallel.average(torch.stack([losses[k].float() for k in keys])).cpu().numpy()
+        with span("step:fetch"):
+            values = parallel.average(
+                torch.stack([losses[k].float() for k in keys])).cpu().numpy()
         out = dict(zip(keys, values))
         if getattr(self.opt, "debug_nan", False):
             bad = [k for k, v in out.items() if not np.isfinite(v).all()]

@@ -15,7 +15,9 @@ RSCL keys of every rank are gathered in rank order (``all_gather_cat``).
 JAX package's ``PPST_NUM_PROCESSES``, ``PPST_PROCESS_ID`` and
 ``PPST_COORDINATOR`` (host:port), so that a JAX launch recipe carries over.
 Without either it leaves the process alone, a world of one. The process
-group is destroyed at exit.
+group is destroyed at exit. While a profiler runs, the collectives of
+``average_grads`` and ``average`` (world > 1 only) are the span
+``ppst.step:grad_sync``.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ from typing import Iterable, List, Optional
 
 import torch
 import torch.distributed as dist
+
+from ppst_tpu_torch.util.spans import span
 
 # gradients are averaged in float32 buckets of about this many bytes
 BUCKET_BYTES = 32 << 20
@@ -121,15 +125,16 @@ def average_grads(params: Iterable[torch.nn.Parameter]):
     if world == 1:
         return
     grads = [p.grad for p in params]
-    for bucket in _buckets(grads):
-        flat = torch.cat([g.reshape(-1).float() for g in bucket])
-        dist.all_reduce(flat)
-        flat /= world
-        offset = 0
-        for g in bucket:
-            n = g.numel()
-            g.copy_(flat[offset : offset + n].view_as(g))
-            offset += n
+    with span("step:grad_sync"):
+        for bucket in _buckets(grads):
+            flat = torch.cat([g.reshape(-1).float() for g in bucket])
+            dist.all_reduce(flat)
+            flat /= world
+            offset = 0
+            for g in bucket:
+                n = g.numel()
+                g.copy_(flat[offset : offset + n].view_as(g))
+                offset += n
 
 
 def average(x: torch.Tensor) -> torch.Tensor:
@@ -138,9 +143,10 @@ def average(x: torch.Tensor) -> torch.Tensor:
     world = world_size()
     if world == 1:
         return x
-    x = x.clone()
-    dist.all_reduce(x)
-    return x / world
+    with span("step:grad_sync"):
+        x = x.clone()
+        dist.all_reduce(x)
+        return x / world
 
 
 def all_gather_cat(x: torch.Tensor, dim: int = 0) -> torch.Tensor:

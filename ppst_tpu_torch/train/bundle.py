@@ -57,6 +57,7 @@ from ppst_tpu_torch.models.ppst import PPSTModel, resolve_device
 from ppst_tpu_torch.train.steps import make_optimizers
 from ppst_tpu_torch.util.from_flax import NETS, adam_from_flax, net_from_flax, rscl_from_flax
 from ppst_tpu_torch.util.msgpack_ckpt import read_checkpoint
+from ppst_tpu_torch.util.spans import span
 
 
 class ModelBundle:
@@ -96,29 +97,34 @@ class ModelBundle:
     def save(self, steps: int, blocking: bool = True):
         """Write ``<steps // 1000>k_checkpoint.pth`` (rank 0 only), on this
         thread or, with ``blocking=False``, on a writer thread from clones of
-        the payload (see the module's docstring)."""
-        self.join_pending_save()
-        if not parallel.is_primary():
-            return
-        t0 = time.perf_counter()
-        if blocking:
-            path = self._write(_map_tensors(self._payload(steps), lambda t: t.cpu()), steps)
-            print(f"Saved checkpoint at {path} in {(time.perf_counter() - t0) * 1e3:.1f} ms")
-            return
-        snap = _map_tensors(self._payload(steps), lambda t: t.detach().clone())
-        ready = None
-        if self.device.type == "cuda":
-            ready = torch.cuda.Event()
-            ready.record()
-        # handed over in a box, so that the writer holds the only reference
-        # and frees the clones once they are on the host
-        self._save_thread = threading.Thread(target=self._write_in_background,
-                                             args=([snap], ready, steps), name="ppst-ckpt",
-                                             daemon=True)
-        del snap
-        self._save_thread.start()
-        print(f"Checkpoint of image {steps}: {(time.perf_counter() - t0) * 1e3:.1f} ms on the "
-              "training thread, written in the background")
+        the payload (see the module's docstring). While a profiler runs, the
+        loop's stall here (a pending save's join, the snapshot and, with
+        ``blocking``, the write) is the span ``ppst.ckpt:save``; the writer
+        thread's copy and write are not recorded (a plain thread does not see
+        the profiler)."""
+        with span("ckpt:save"):
+            self.join_pending_save()
+            if not parallel.is_primary():
+                return
+            t0 = time.perf_counter()
+            if blocking:
+                path = self._write(_map_tensors(self._payload(steps), lambda t: t.cpu()), steps)
+                print(f"Saved checkpoint at {path} in {(time.perf_counter() - t0) * 1e3:.1f} ms")
+                return
+            snap = _map_tensors(self._payload(steps), lambda t: t.detach().clone())
+            ready = None
+            if self.device.type == "cuda":
+                ready = torch.cuda.Event()
+                ready.record()
+            # handed over in a box, so that the writer holds the only reference
+            # and frees the clones once they are on the host
+            self._save_thread = threading.Thread(target=self._write_in_background,
+                                                 args=([snap], ready, steps), name="ppst-ckpt",
+                                                 daemon=True)
+            del snap
+            self._save_thread.start()
+            print(f"Checkpoint of image {steps}: {(time.perf_counter() - t0) * 1e3:.1f} ms on the "
+                  "training thread, written in the background")
 
     def _write_in_background(self, box, ready, steps):
         try:

@@ -15,6 +15,12 @@ and ``opt.step()`` (``parallel.average_grads``, explicit bucketed
 under ``torch.utils.checkpoint``, which ``DistributedDataParallel``'s hooks
 do not expect). The local batches are equal, so the mean of the ranks'
 gradients is the global batch's, as in the JAX package's sharded step.
+
+While a profiler runs, each update marks its phases as the spans
+``ppst.step:forward`` (the cast, the losses and their sum),
+``ppst.step:backward`` (zeroing, ``backward``, zero-fill; the recomputes
+under ``torch.utils.checkpoint`` fall inside it) and ``ppst.step:update``
+(the Adam steps, and G's RSCL queues); a D+R1 step shows the three twice.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from typing import Dict
 import torch
 
 from ppst_tpu_torch import parallel
+from ppst_tpu_torch.util.spans import span
 
 GE_KEYS = ("G", "E1", "E2")
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -46,18 +53,20 @@ def _backward(loss, params):
     """Gradients of ``loss`` for ``params``; a parameter the loss does not
     reach (R1's biases) gets a zero gradient, so that Adam counts the step
     for it too, as optax does."""
-    for p in params:
-        p.grad = None
-    loss.backward(inputs=params)
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
+    with span("step:backward"):
+        for p in params:
+            p.grad = None
+        loss.backward(inputs=params)
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
 
 
 def _apply(opt, loss, params):
     _backward(loss, params)
     parallel.average_grads(params)
-    opt.step()
+    with span("step:update"):
+        opt.step()
 
 
 class TrainSteps:
@@ -71,16 +80,20 @@ class TrainSteps:
         return real.to(self.dtype), mask.to(self.dtype)
 
     def _d_update(self, real, mask, generator):
-        losses = self.model.discriminator_losses(real, mask, generator)
-        _apply(self.opts["D"], sum(losses.values()), list(self.model.D.parameters()))
-        return losses
+        """The D update of the batch; returns (losses, the cast batch)."""
+        with span("step:forward"):
+            real, mask = self._cast(real, mask)
+            losses = self.model.discriminator_losses(real, mask, generator)
+            total = sum(losses.values())
+        _apply(self.opts["D"], total, list(self.model.D.parameters()))
+        return losses, real
 
     @staticmethod
     def _detached(losses):
         return {k: v.detach() for k, v in losses.items()}
 
     def d_step(self, real, mask, generator: torch.Generator):
-        losses = self._d_update(*self._cast(real, mask), generator)
+        losses, _ = self._d_update(real, mask, generator)
         losses["D_total"] = sum(losses.values())
         return self._detached(losses)
 
@@ -88,22 +101,25 @@ class TrainSteps:
         """A D update, then a second update by the lazy R1 penalty (times
         R1_once_every) on the fresh D: two optimizer steps, as the
         reference's ppst_optimizer.py:113-126."""
-        real, mask = self._cast(real, mask)
-        losses = self._d_update(real, mask, generator)
-        r1 = self.model.r1_loss(real)
-        _apply(self.opts["D"], sum(r1.values()) * self.cfg.R1_once_every,
-               list(self.model.D.parameters()))
+        losses, real = self._d_update(real, mask, generator)
+        with span("step:forward"):
+            r1 = self.model.r1_loss(real)
+            total = sum(r1.values()) * self.cfg.R1_once_every
+        _apply(self.opts["D"], total, list(self.model.D.parameters()))
         losses.update(r1)
         losses["D_total"] = sum(losses.values())
         return self._detached(losses)
 
     def g_step(self, real, mask, generator: torch.Generator):
-        real, mask = self._cast(real, mask)
-        losses, metrics, rscl = self.model.generator_losses(real, mask, generator)
+        with span("step:forward"):
+            real, mask = self._cast(real, mask)
+            losses, metrics, rscl = self.model.generator_losses(real, mask, generator)
+            total = sum(losses.values())
         params = [p for k in GE_KEYS for p in getattr(self.model, k).parameters()]
-        _backward(sum(losses.values()), params)
+        _backward(total, params)
         parallel.average_grads(params)
-        for k in GE_KEYS:
-            self.opts[k].step()
-        self.model.set_rscl_state(rscl)
+        with span("step:update"):
+            for k in GE_KEYS:
+                self.opts[k].step()
+            self.model.set_rscl_state(rscl)
         return self._detached(dict(losses, **metrics))

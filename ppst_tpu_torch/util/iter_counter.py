@@ -1,7 +1,12 @@
 """Image-count-based iteration counter (counterpart of
 ``ppst_tpu/util/iter_counter.py``; reference util/iter_counter.py): counts
 images, not steps; ``iter.txt`` for resume; EMA-smoothed per-section wall
-times per image. Under ``torch.distributed`` only rank 0 writes ``iter.txt``."""
+times per image. Under ``torch.distributed`` only rank 0 writes ``iter.txt``.
+
+A section's first sample (the cold first batch, the first step's warm-up)
+is left out of its EMA, which its second sample seeds: until then the
+section has no time. While a profiler runs, each section is the span
+``ppst.loop:<section>``."""
 
 from __future__ import annotations
 
@@ -9,6 +14,7 @@ import os
 import time
 
 from ppst_tpu_torch import parallel
+from ppst_tpu_torch.util.spans import span
 
 
 class IterationCounter:
@@ -27,6 +33,7 @@ class IterationCounter:
         self.steps_so_far = 0
         self.batch_size = opt.batch_size
         self.time_measurements = {}
+        self._sampled = set()  # the sections whose first, cold sample has passed
         resume_iter = getattr(opt, "resume_iter", "latest")
         if getattr(opt, "continue_train", False):
             if resume_iter == "latest":
@@ -73,10 +80,17 @@ class _TimeMeasurement:
         self.name, self.parent = name, parent
 
     def __enter__(self):
+        self.span = span("loop:" + self.name)
+        self.span.__enter__()
         self.start_time = time.time()
 
     def __exit__(self, *exc):
         elapsed = (time.time() - self.start_time) / self.parent.batch_size
-        prev = self.parent.time_measurements.get(self.name)
-        self.parent.time_measurements[self.name] = (
+        self.span.__exit__(*exc)
+        parent = self.parent
+        if self.name not in parent._sampled:
+            parent._sampled.add(self.name)
+            return
+        prev = parent.time_measurements.get(self.name)
+        parent.time_measurements[self.name] = (
             elapsed if prev is None else prev * 0.98 + elapsed * 0.02)

@@ -160,8 +160,8 @@ def test_world_of_one_is_a_single_process(trainer):
 
 def test_profile_dir_traces_steps_10_to_14(tmp_path):
     """``--profile_dir`` on a 15-step run writes ``trace_rank0.json`` holding
-    the ranges of steps 10-14 and no other step, with the steps' operators;
-    ``opt.txt`` records the option; the final save waits for the last
+    the ranges of steps 10-14 and no other step, with the steps' operators
+    and the program's spans; ``opt.txt`` records the option; the final save waits for the last
     background one."""
     prof = tmp_path / "prof"
     cli.main(_args(tmp_path / "ck", "--total_nimgs", "30", "--save_freq", "8",
@@ -171,6 +171,10 @@ def test_profile_dir_traces_steps_10_to_14(tmp_path):
     steps = sorted({int(n.split("#")[1]) for n in names if n.startswith("ProfilerStep#")})
     assert steps == [10, 11, 12, 13, 14]
     assert any(n.startswith("aten::conv") for n in names)
+    # the program's spans: the loop's sections, each update's phases, a save (image 24)
+    assert {f"ppst.{s}" for s in ("loop:data", "loop:train", "loop:maintenance", "step:inputs",
+                                  "step:forward", "step:backward", "step:update", "step:fetch",
+                                  "ckpt:save")} <= set(names)
     opt_txt = (tmp_path / "ck" / "run" / "opt.txt").read_text()
     assert f"profile_dir: {prof}" in opt_txt
     raw = _load(tmp_path / "ck" / "run" / "latest_checkpoint.pth")
