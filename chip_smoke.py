@@ -19,19 +19,25 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    with its share of the bound; the standalone upfirdn2d (K4: each case's
    route, the record and mid shapes on the TMA route, the cuDNN depthwise
    conv2d that computes the same function as its library call) and bias +
-   leaky ReLU (K5) with the port's composite ops' times beside them;
+   leaky ReLU (K5) with the port's composite ops' times beside them; the
+   StyledConv epilogue (K7) at the generator's 512px batch-16 and 1024px
+   batch-2 shapes against the composite (every element the composite's or
+   that of the normalized value one bf16 step away), with its time, the
+   composite's and the byte bound;
 3. path: 512px ``stylize`` at full width in bf16 with the fused tap and the
    guided filter, batch 1 then batch 8 pairs; then 1024px ``stylize_fused``
    (the blockwise correspondence) at batch 1; then 512px ``stylize`` with the
    fused StyledConv too (K6 22 times a call), its output against the unfused
    path's, and one 1024px ``stylize_fused`` call with it; each checks its
-   output and the kernels it launched;
+   output and the kernels it launched (K7 28 times a call, 6 with the fused
+   StyledConv);
 4. grid: a 512px 4x8 grid, dense and blockwise on the same banks, and a
    1024px 2x4 blockwise grid, with pairs/s amortized over extraction;
 5. train: 512px full-width training in bf16 with the fused tap at batch 4
    (D, G and D+R1 steps through ``train.steps``): step times, training
    images/s, peak memory, every loss, every network moving, and the
-   launches of K1 and K2 (K2 once per G step) and K3 (none);
+   launches of K1 and K2 (K2 once per G step), K3 (none) and K7 (28 a D or
+   D+R1 step, none in a G step);
    then ``remat_save_kernels`` off, on, off again and on again (the first
    D and G steps' losses bit-equal, no kernel prepared again in the first
    G backward with the knob on and some without it, its gradients on
@@ -205,6 +211,22 @@ K4_CASES = [((8, 512, 512, 128), torch.bfloat16, (1, 3, 3, 1), (2, 1), 1, "tma")
             ((2, 19, 33, 3), torch.float32, (1, 2, 3), (1, 2), 2, "generic"),
             ((8, 128, 128, 512), torch.bfloat16, (1, 3, 3, 1), (2, 1), 1, "tma"),
             ((8, 256, 256, 256), torch.bfloat16, (1, 3, 3, 1), (1, 1), 2, "tma")]
+# The StyledConv epilogue at (B, H, W, C, noise): the generator's StyledConv
+# outputs at 512px batch 16 (the batch-8 extraction) and at 1024px batch 2
+# (the 1024px extraction), each distinct shape once (the 14 convs have 6 at
+# each size), 512px batch 1's first head shape, and an odd shape without
+# noise; its record is the 512px extraction's largest. The kernel rounds where
+# the composite rounds; only the statistics' summation order differs, which
+# may move the rounding of the normalized value n: each element must be the
+# composite's, or that of n one bf16 step away, and under 0.1% of them may
+# differ (EPI_FLIP_SHARE; measured on an H100: at most 9.7e-5).
+EPI_SHAPES = [(3, 20, 36, 48, False), (1, 64, 64, 256, True),
+              *((16, h, h, c, True) for h, c in ((64, 256), (64, 384), (64, 512), (128, 512),
+                                                 (256, 256), (512, 128))),
+              *((2, h, h, c, True) for h, c in ((128, 256), (128, 384), (128, 512), (256, 512),
+                                                (512, 256), (1024, 128)))]
+EPI_RECORD = (16, 512, 512, 128, True)
+EPI_FLIP_SHARE = 1e-3
 # K5 (bias + leaky ReLU + gain) at these shapes; the first is the record. The
 # kernel rounds where the plain op rounds: bitwise equal in both dtypes
 # the JAX package's 1024px training mode (tools/bench_train.py --crop 1024
@@ -665,6 +687,113 @@ def act_phase(act, bw, card):
     return record
 
 
+def styled_epilogue_inputs(g, b, h, w, c, noisy):
+    """Arguments of ``styled_epilogue`` as a StyledConv hands them over: a
+    conv output, nonzero float32 biases and gain, bf16 noise, a bf16 style
+    row (B, 2C) of the StyleMod linear's size."""
+    y = (torch.randn((b, h, w, c), generator=g, device="cuda") * 0.7).bfloat16()
+    bias = [torch.empty((c,), device="cuda").uniform_(-0.3, 0.3, generator=g) for _ in range(3)]
+    gain = torch.full((1,), 0.15, device="cuda") if noisy else None
+    noise = torch.randn((b, h, w, 1), generator=g, device="cuda").bfloat16() if noisy else None
+    style = (torch.randn((b, 2 * c), generator=g, device="cuda") * 0.2).bfloat16()
+    return y, bias[0], gain, noise, bias[1], bias[2], style
+
+
+def bf16_neighbours(t):
+    """The bf16 values one step below and one step above each element of t."""
+    v = t.contiguous().view(torch.int16).to(torch.int32)
+    ordered = torch.where(v < 0, -(v & 0x7FFF), v)
+
+    def bits(o):
+        u = torch.where(o < 0, (-o) | 0x8000, o)
+        return torch.where(u >= 0x8000, u - 0x10000, u).to(torch.int16).view(torch.bfloat16)
+
+    return bits(ordered - 1), bits(ordered + 1)
+
+
+def epilogue_against_composite(got, args):
+    """(the composite's output, the share of got's elements that differ from
+    it, the share that no step of one bf16 ulp of the normalized value n
+    explains). The statistics are the only inputs whose summation order
+    differs, and they reach the output only through n's rounding: the
+    kernel must give the composite's output, or that of n one step up or
+    down, at every element."""
+    from ppst_tpu_torch.nn.layers import instance_norm, modulate, styled_conv_epilogue
+    from ppst_tpu_torch.ops.fused_act import fused_leaky_relu
+
+    y, conv_bias, gain, noise, bias, act_bias, style = args
+    want = styled_conv_epilogue(*args)
+    t = y + conv_bias.to(y.dtype)
+    if noise is not None:
+        t = t + gain.to(y.dtype) * noise
+    n = instance_norm(fused_leaky_relu(t + bias.to(y.dtype), act_bias))
+    if not torch.equal(modulate(n, style), want):
+        raise AssertionError("the check's steps up to n are not the composite's")
+    down, up = bf16_neighbours(n)
+    explained = (got == want) | (got == modulate(down, style)) | (got == modulate(up, style))
+    return want, (got != want).float().mean().item(), (~explained).float().mean().item()
+
+
+def epilogue_bound(shape, bw):
+    """Least traffic of the epilogue (``benchmark/roofline/styled_epilogue.py``'s
+    count): y read once, out written once, the noise, the three biases, the
+    style row."""
+    b, h, w, c = shape[:4]
+    nbytes = b * h * w * c * 4 + b * h * w * 2 + 12 * c + 4 * b * c
+    return nbytes / bw * 1e3, nbytes
+
+
+def styled_epilogue_phase(se, bw, card, shapes=None):
+    """The StyledConv epilogue's kernels against their plain version (the
+    composite ``nn.layers.styled_conv_epilogue``, PyTorch's kernels on the
+    card) at EPI_SHAPES (``epilogue_against_composite``, EPI_FLIP_SHARE),
+    determinism, and at the shapes of 64 x 64 and more the kernel's time
+    beside the composite's and the byte bound, with the two kernels' device
+    times from one profiled call at the record shape; returns its record."""
+    from ppst_tpu_torch.nn.layers import styled_conv_epilogue
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    record, max_share, launches0 = None, 0.0, se.styled_epilogue.launches
+    for shape in shapes or EPI_SHAPES:
+        args = styled_epilogue_inputs(g, *shape)
+        got = se.styled_epilogue(*args)
+        torch.cuda.synchronize()
+        want, share, unexplained = epilogue_against_composite(got, args)
+        print(f"[kernel] styled_epilogue {shape}: {share:.3e} of the elements differ from "
+              f"the composite, {unexplained} not by one bf16 step of n (tolerance: under "
+              f"{EPI_FLIP_SHARE}, 0); max_abs_err "
+              f"{(got.float() - want.float()).abs().max().item()}", flush=True)
+        if not (got.shape == want.shape and got.dtype == torch.bfloat16
+                and torch.isfinite(got.float()).all().item() and unexplained == 0
+                and share < EPI_FLIP_SHARE):
+            raise AssertionError(f"styled_epilogue disagrees with its plain version at {shape}")
+        if not torch.equal(got, se.styled_epilogue(*args)):
+            raise AssertionError(f"styled_epilogue is not deterministic at {shape}")
+        max_share = max(max_share, share)
+        del got, want
+        if shape[1] < 64:
+            continue
+        bound_ms, nbytes = epilogue_bound(shape, bw)
+        ms, plain_ms = cuda_ms(lambda: se.styled_epilogue(*args), reps=10,
+                               other=lambda: styled_conv_epilogue(*args))
+        print(f"[kernel] styled_epilogue {shape}: {ms:.4f} ms, plain (the composite) "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes: {nbytes / 1e6:.1f} MB at "
+              f"{bw / 1e12} TB/s), {bound_ms / ms:.1%} of the bound; {card}", flush=True)
+        if shape == EPI_RECORD:
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                se.styled_epilogue(*args)
+                torch.cuda.synchronize()
+            device = {re.search(r"styled_epi_\w+", e.key).group(0): e.device_time_total / 1e3
+                      for e in prof.key_averages() if "styled_epi_" in e.key}
+            print(f"[kernel] styled_epilogue {shape}: device ms a launch {device}", flush=True)
+            record = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                          device_ms=device)
+    record.update(max_flip_share=max_share,
+                  check_launches=se.styled_epilogue.launches - launches0)
+    return record
+
+
 def sdpa_backend(q, k, v, scale):
     """The backend PyTorch's scaled_dot_product_attention picks for these
     inputs."""
@@ -728,12 +857,13 @@ def corr_warp_phase(cw, bw, flops, card):
 
 def kernel_wrappers():
     """Every kernel wrapper of the port, each with its launch count."""
-    from ppst_tpu_torch.ops import (corr_warp_cuda, fused_act_cuda, styled_conv_cuda, tap_cuda,
-                                    upfirdn2d_cuda)
+    from ppst_tpu_torch.ops import (corr_warp_cuda, fused_act_cuda, styled_conv_cuda,
+                                    styled_epilogue_cuda, tap_cuda, upfirdn2d_cuda)
 
     return (tap_cuda.fused_tap_1x1, tap_cuda.fused_tap_1x1_bwd, corr_warp_cuda.corr_warp_blockwise,
             styled_conv_cuda.styled_conv3x3, styled_conv_cuda.styled_conv3x3_bwd,
-            upfirdn2d_cuda.upfirdn2d_cuda, fused_act_cuda.fused_leaky_relu_cuda)
+            upfirdn2d_cuda.upfirdn2d_cuda, fused_act_cuda.fused_leaky_relu_cuda,
+            styled_epilogue_cuda.styled_epilogue)
 
 
 def reset_launches():
@@ -741,14 +871,27 @@ def reset_launches():
         k.launches = 0
 
 
+# calls of the StyledConv epilogue op a generator pass without grad in bf16:
+# every StyledConv, or with the fused StyledConv only the upsampling conv1s
+EPI_PER_G_PASS = {False: 14, True: 3}
+
+
+def epilogue_launches():
+    from ppst_tpu_torch.ops.styled_epilogue_cuda import styled_epilogue
+
+    return styled_epilogue.launches
+
+
 # K4's and K5's launches on the path phases, each read just after a path ran
-# from counts set to 0 (no path of the port runs them)
-STANDALONE_PATH_LAUNCHES = {"upfirdn2d_cuda": 0, "fused_leaky_relu_cuda": 0}
+# from counts set to 0 (no path of the port runs them), and the StyledConv
+# epilogue's (every bf16 generator pass without grad runs it)
+STANDALONE_PATH_LAUNCHES = {"upfirdn2d_cuda": 0, "fused_leaky_relu_cuda": 0,
+                            "styled_epilogue": 0}
 
 
 def read_standalone_launches():
-    """Adds K4's and K5's launches since the last reset_launches() to
-    STANDALONE_PATH_LAUNCHES."""
+    """Adds K4's, K5's and the epilogue's launches since the last
+    reset_launches() to STANDALONE_PATH_LAUNCHES."""
     for k in kernel_wrappers():
         if k.__name__ in STANDALONE_PATH_LAUNCHES:
             STANDALONE_PATH_LAUNCHES[k.__name__] += k.launches
@@ -859,11 +1002,15 @@ def path_phase(tap_cuda, cw, PPSTConfig, PPSTModel, card):
     for _ in range(reps):
         out8 = run(content8, style8)
     pairs_s = 8 * reps / (time.perf_counter() - t0)
-    launches = tap_cuda.fused_tap_1x1.launches
+    launches, epi = tap_cuda.fused_tap_1x1.launches, epilogue_launches()
     if cw.corr_warp_blockwise.launches:
         raise AssertionError("the dense stylize path launched the blockwise kernel")
     check_no_backward("stylize")
     read_standalone_launches()
+    # two G passes a request: the batched extraction and the decode
+    if epi != 2 * EPI_PER_G_PASS[False] * calls:
+        raise AssertionError(f"stylize launched the StyledConv epilogue {epi} times in {calls} "
+                             f"calls ({2 * EPI_PER_G_PASS[False]} a call expected)")
 
     for out, b in ((out1, 1), (out8, 8)):
         if out.shape != (b, 512, 512, 3) or not torch.isfinite(out).all().item():
@@ -878,7 +1025,8 @@ def path_phase(tap_cuda, cw, PPSTConfig, PPSTModel, card):
         "smooth_target": True, "batch1_latency_ms_p50": statistics.median(lat),
         "batch1_latency_ms": lat, "batch8_pairs_per_s": pairs_s,
         "batch8_peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "stylize_calls": calls, "fused_tap_launches": launches, "card": card}), flush=True)
+        "stylize_calls": calls, "fused_tap_launches": launches,
+        "styled_epilogue_launches": epi, "card": card}), flush=True)
     return launches
 
 
@@ -903,9 +1051,13 @@ def fused_path_phase(tap_cuda, cw, PPSTConfig, PPSTModel, card):
         lat.append((time.perf_counter() - t0) * 1e3)
     calls = 11
     k1, k3 = tap_cuda.fused_tap_1x1.launches, cw.corr_warp_blockwise.launches
+    epi = epilogue_launches()
     peak = torch.cuda.max_memory_allocated() / 2**30
     check_no_backward("stylize_fused")
     read_standalone_launches()
+    if epi != 2 * EPI_PER_G_PASS[False] * calls:
+        raise AssertionError(f"stylize_fused launched the StyledConv epilogue {epi} times in "
+                             f"{calls} calls ({2 * EPI_PER_G_PASS[False]} a call expected)")
 
     if out.shape != (1, 1024, 1024, 3) or not torch.isfinite(out).all().item():
         raise AssertionError(f"stylize_fused: bad output {tuple(out.shape)}")
@@ -926,7 +1078,8 @@ def fused_path_phase(tap_cuda, cw, PPSTConfig, PPSTModel, card):
         "path": "stylize_fused", "crop": 1024, "dtype": "bfloat16", "fused_tap": True,
         "smooth_target": True, "batch1_latency_ms_p50": p50, "batch1_latency_ms": lat,
         "peak_mem_gib": peak, "calls": calls, "corr_warp_launches": k3,
-        "fused_tap_launches": k1, "corr_warp_ms_per_call": k3_ms,
+        "fused_tap_launches": k1, "styled_epilogue_launches": epi,
+        "corr_warp_ms_per_call": k3_ms,
         "corr_warp_share_of_p50": k3_ms / p50, "card": card}), flush=True)
     return k3
 
@@ -974,15 +1127,17 @@ def styled_conv_path_phase(tap_cuda, cw, sc, PPSTConfig, PPSTModel, card):
     peak = torch.cuda.max_memory_allocated() / 2**30
     k1, k3, k6 = (tap_cuda.fused_tap_1x1.launches, cw.corr_warp_blockwise.launches,
                   sc.styled_conv3x3.launches)
+    epi = epilogue_launches()
     check_no_backward("stylize with the fused StyledConv")
     read_standalone_launches()
     for out, b in ((out1, 1), (out8, 8)):
         if out.shape != (b, 512, 512, 3) or not torch.isfinite(out.float()).all().item():
             raise AssertionError(f"fused StyledConv stylize batch {b}: bad output")
     # two G passes a call (the batched extraction and the decode), 11 K6 each
-    if k6 != 22 * calls or k1 != calls or k3:
-        raise AssertionError(f"fused StyledConv stylize launched K6 {k6}, K1 {k1} and K3 {k3} "
-                             f"times in {calls} calls ({22 * calls}, {calls} and 0 expected)")
+    if k6 != 22 * calls or k1 != calls or k3 or epi != 2 * EPI_PER_G_PASS[True] * calls:
+        raise AssertionError(f"fused StyledConv stylize launched K6 {k6}, K1 {k1}, K3 {k3} and "
+                             f"the epilogue {epi} times in {calls} calls ({22 * calls}, {calls}, "
+                             f"0 and {2 * EPI_PER_G_PASS[True] * calls} expected)")
 
     # against the unfused path: the same weights, pinned bf16 noise
     unfused = PPSTModel(dataclasses.replace(cfg, fused_styled_conv=False), device="cuda", seed=0)
@@ -1014,19 +1169,21 @@ def styled_conv_path_phase(tap_cuda, cw, sc, PPSTConfig, PPSTModel, card):
     out = big.stylize_fused(c1, s1, gen, smooth_target=True)
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
-    k6_1024 = sc.styled_conv3x3.launches
+    k6_1024, epi_1024 = sc.styled_conv3x3.launches, epilogue_launches()
     check_no_backward("1024px stylize_fused with the fused StyledConv")
     read_standalone_launches()
     if (out.shape != (1, 1024, 1024, 3) or not torch.isfinite(out.float()).all().item()
-            or k6_1024 != 22 or cw.corr_warp_blockwise.launches != 4):
+            or k6_1024 != 22 or cw.corr_warp_blockwise.launches != 4
+            or epi_1024 != 2 * EPI_PER_G_PASS[True]):
         raise AssertionError(f"1024px stylize_fused with the fused StyledConv: output "
-                             f"{tuple(out.shape)}, K6 {k6_1024} launches (22 expected)")
+                             f"{tuple(out.shape)}, K6 {k6_1024} launches (22 expected), the "
+                             f"epilogue {epi_1024} ({2 * EPI_PER_G_PASS[True]} expected)")
     print(json.dumps({
         "path": "stylize", "crop": 512, "dtype": "bfloat16", "fused_tap": True,
         "fused_styled_conv": True, "smooth_target": True,
         "batch1_latency_ms_p50": statistics.median(lat), "batch1_latency_ms": lat,
         "batch8_pairs_per_s": pairs_s, "batch8_peak_mem_gib": peak, "stylize_calls": calls,
-        "styled_conv_launches": k6, "fused_tap_launches": k1,
+        "styled_conv_launches": k6, "fused_tap_launches": k1, "styled_epilogue_launches": epi,
         "fused_vs_unfused_max_abs": mx, "fused_vs_unfused_mean_abs": mean,
         "stylize_fused_1024_first_call_ms": first_ms, "stylize_fused_1024_styled_conv_launches":
             k6_1024, "card": card}), flush=True)
@@ -1166,6 +1323,7 @@ def train_phase(tap_cuda, cw, sc, PPSTConfig, PPSTModel, card, fused_styled_conv
     k1, k2, k3 = (tap_cuda.fused_tap_1x1.launches, tap_cuda.fused_tap_1x1_bwd.launches,
                   cw.corr_warp_blockwise.launches)
     k6, k6b = sc.styled_conv3x3.launches, sc.styled_conv3x3_bwd.launches
+    epi = epilogue_launches()
     read_standalone_launches()
     t = {k: statistics.median(v[1:]) for k, v in times.items()}
     img_s = 2 * batch / (t["d"] + t["g"] + (t["r1"] - t["d"]) / 16) * 1e3
@@ -1194,6 +1352,13 @@ def train_phase(tap_cuda, cw, sc, PPSTConfig, PPSTModel, card, fused_styled_conv
     if k6 != want_k6 or k6b != want_k6b:
         raise AssertionError(f"training launched K6 {k6} and K6's backward {k6b} times in "
                              f"{counts} steps ({want_k6} and {want_k6b} expected)")
+    # the epilogue op: the G passes of D and D+R1 steps (two, three with
+    # unbatch_passes), none in a G step (its passes carry grad)
+    d_passes = 3 if (knobs or {}).get("unbatch_passes") else 2
+    want_epi = EPI_PER_G_PASS[fused_styled_conv] * d_passes * (counts["d"] + counts["r1"])
+    if epi != want_epi:
+        raise AssertionError(f"training launched the StyledConv epilogue {epi} times in {counts} "
+                             f"steps ({want_epi} expected)")
     print(json.dumps({
         "path": "train", "crop": crop, "batch": batch, "dtype": "bfloat16", "fused_tap": True,
         "fused_styled_conv": fused_styled_conv, "remat_nets": model.cfg.remat_nets,
@@ -1202,7 +1367,8 @@ def train_phase(tap_cuda, cw, sc, PPSTConfig, PPSTModel, card, fused_styled_conv
         "train_img_per_s": img_s, "peak_mem_gib": peak, "k2_scratch_bytes": k2_scratch,
         "losses": losses, "steps": counts,
         "fused_tap_launches": k1, "fused_tap_bwd_launches": k2, "corr_warp_launches": k3,
-        "styled_conv_launches": k6, "styled_conv_bwd_launches": k6b, "card": card}), flush=True)
+        "styled_conv_launches": k6, "styled_conv_bwd_launches": k6b,
+        "styled_epilogue_launches": epi, "card": card}), flush=True)
     return k2, k6, k6b
 
 
@@ -1234,7 +1400,8 @@ def validate_phase(card, steps=VALIDATE_STEPS, lpips_steps=LPIPS_STEPS):
     (bf16, the fused tap). Each run must be finite and move every network,
     launch the kernels its configuration runs (K1 once a D step and twice a
     G step, K2 once a G step, K6 22 a D step and 66 a G step, its backward
-    22 a G step) and no other, and each bf16 run's G-side tail means must
+    22 a G step, the StyledConv epilogue 28 a bf16 D step, 6 with K6) and no
+    other, and each bf16 run's G-side tail means must
     stay within VALIDATE_G_REL of the float32 run's. Returns each kernel's
     launches over the phase."""
     from ppst_tpu_torch.tools import bf16_validation, lpips_ablation, stream
@@ -1260,10 +1427,12 @@ def validate_phase(card, steps=VALIDATE_STEPS, lpips_steps=LPIPS_STEPS):
         torch.cuda.empty_cache()
         runs[name] = run
         fused_tap, fused_sc = cfg.get("fused_tap", False), cfg.get("fused_styled_conv", False)
+        bf16 = fn is lpips_ablation.run or args[0] == "bfloat16"
         want = {"fused_tap_1x1": 3 * n if fused_tap else 0,
                 "fused_tap_1x1_bwd": n if fused_tap else 0,
                 "styled_conv3x3": 88 * n if fused_sc else 0,
-                "styled_conv3x3_bwd": 22 * n if fused_sc else 0}
+                "styled_conv3x3_bwd": 22 * n if fused_sc else 0,
+                "styled_epilogue": 2 * EPI_PER_G_PASS[fused_sc] * n if bf16 else 0}
         if not stream.finite(run.rows):
             failures.append(f"{name}: non-finite losses")
         still = [net for net, d in run.moved.items() if not d > 0]
@@ -1589,8 +1758,8 @@ def cli_train_eval_phase(tap_cuda, card):
                 launches.append((tap_cuda.fused_tap_1x1.launches,
                                  tap_cuda.fused_tap_1x1_bwd.launches))
                 for k in kernel_wrappers():
-                    if k not in (tap_cuda.fused_tap_1x1, tap_cuda.fused_tap_1x1_bwd) \
-                            and k.launches:
+                    if k.__name__ not in ("fused_tap_1x1", "fused_tap_1x1_bwd",
+                                          "styled_epilogue") and k.launches:
                         raise AssertionError(f"the training CLI launched {k.__name__}")
                 read_standalone_launches()
         finally:
@@ -1706,7 +1875,7 @@ def pak_grid_phase(tap_cuda, card):
             secs.append(time.perf_counter() - t0)
             launches.append(tap_cuda.fused_tap_1x1.launches)
             for k in kernel_wrappers():
-                if k is not tap_cuda.fused_tap_1x1 and k.launches:
+                if k.__name__ not in ("fused_tap_1x1", "styled_epilogue") and k.launches:
                     raise AssertionError(f"the grid CLI launched {k.__name__}")
             read_standalone_launches()
             pages[mode] = os.path.join(out, "ppst", "results", "contentstylegridgeneration",
@@ -1848,7 +2017,8 @@ def launcher_phase(tap_cuda, card):
             for s, h in handlers.items():
                 signal.signal(s, h)
         for k in kernel_wrappers():
-            if k not in (tap_cuda.fused_tap_1x1, tap_cuda.fused_tap_1x1_bwd) and k.launches:
+            if k.__name__ not in ("fused_tap_1x1", "fused_tap_1x1_bwd", "styled_epilogue") \
+                    and k.launches:
                 raise AssertionError(f"the launcher's runs launched {k.__name__}")
 
         run = os.path.join(ck, "CelebAMaskHQ_default")
@@ -2410,7 +2580,7 @@ def cli_phase():
 def build_phase():
     """Build every kernel source at once, one nvcc each, and load them."""
     from ppst_tpu_torch.ops import (_nvcc, corr_warp_cuda, fused_act_cuda, styled_conv_cuda,
-                                    tap_cuda, upfirdn2d_cuda)
+                                    styled_epilogue_cuda, tap_cuda, upfirdn2d_cuda)
 
     def build(name):
         t0 = time.perf_counter()
@@ -2418,13 +2588,14 @@ def build_phase():
         return time.perf_counter() - t0
 
     names = ("tap", "tap_bwd", "corr_warp", "styled_conv", "styled_conv_bwd", "upfirdn2d",
-             "fused_act")
+             "fused_act", "styled_epilogue")
     with ThreadPoolExecutor(len(names)) as pool:
         for name, secs in zip(names, pool.map(build, names)):
             print(f"[build] csrc/{name}.cu built in {secs:.1f} s", flush=True)
-    # K1's, K2's, K3's, K6's and K4's registers, shared memory and spills, as
-    # ptxas reported them
-    for name in ("tap", "tap_bwd", "corr_warp", "styled_conv", "styled_conv_bwd", "upfirdn2d"):
+    # K1's, K2's, K3's, K6's, K4's and the epilogue's registers, shared memory
+    # and spills, as ptxas reported them
+    for name in ("tap", "tap_bwd", "corr_warp", "styled_conv", "styled_conv_bwd", "upfirdn2d",
+                 "styled_epilogue"):
         for line in _nvcc.ptxas_summary(_nvcc.build(_nvcc.PKG / "csrc" / f"{name}.cu")):
             print(f"[build] ptxas {name}.cu {line}", flush=True)
     tap_cuda._lib()
@@ -2434,6 +2605,7 @@ def build_phase():
     styled_conv_cuda._bwd_lib()
     upfirdn2d_cuda._lib()
     fused_act_cuda._lib()
+    styled_epilogue_cuda._lib()
 
 
 def phase(name, fn, *args):
@@ -2449,8 +2621,8 @@ def main():
         return 1
     from ppst_tpu_torch.models.config import PPSTConfig
     from ppst_tpu_torch.models.ppst import PPSTModel
-    from ppst_tpu_torch.ops import (corr_warp_cuda, fused_act_cuda, styled_conv_cuda, tap_cuda,
-                                    upfirdn2d_cuda)
+    from ppst_tpu_torch.ops import (corr_warp_cuda, fused_act_cuda, styled_conv_cuda,
+                                    styled_epilogue_cuda, tap_cuda, upfirdn2d_cuda)
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -2469,6 +2641,7 @@ def main():
                 card)
     k4 = phase("kernel upfirdn2d", fir_phase, upfirdn2d_cuda, bw, card)
     k5 = phase("kernel fused_leaky_relu", act_phase, fused_act_cuda, bw, card)
+    ke = phase("kernel styled_epilogue", styled_epilogue_phase, styled_epilogue_cuda, bw, card)
     k1_launches = phase("path stylize 512px", path_phase, tap_cuda, corr_warp_cuda,
                         PPSTConfig, PPSTModel, card)
     k3_launches = phase("path stylize_fused 1024px", fused_path_phase, tap_cuda, corr_warp_cuda,
@@ -2556,6 +2729,15 @@ def main():
          "check_launches": k5["check_launches"],
          "max_abs_err": k5["max_abs_err"], "ms": k5["ms"], "plain_ms": k5["plain_ms"],
          "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"], "library_ms": None},
+        # the StyledConv epilogue replaces no TPU kernel (XLA fused the chain);
+        # its launches over every phase after its own, and its own phase's
+        {"name": "styled_epilogue", "route": "cuda",
+         "source": "ppst_tpu_torch/csrc/styled_epilogue.cu", "replaces": None,
+         "launches": STANDALONE_PATH_LAUNCHES["styled_epilogue"],
+         "check_launches": ke["check_launches"], "max_flip_share": ke["max_flip_share"],
+         "ms": ke["ms"], "plain_ms": ke["plain_ms"],
+         "bound_ms": ke["bound_ms"], "bound_by": ke["bound_by"], "device_ms": ke["device_ms"],
+         "library_ms": None},
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

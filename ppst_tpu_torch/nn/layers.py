@@ -32,6 +32,7 @@ import torch.nn.functional as F
 
 from ppst_tpu_torch.ops.fused_act import fused_leaky_relu, scaled_leaky_relu
 from ppst_tpu_torch.ops.styled_conv_cuda import styled_conv3x3
+from ppst_tpu_torch.ops.styled_epilogue_cuda import styled_epilogue
 from ppst_tpu_torch.ops.upfirdn2d import blur as blur_op
 from ppst_tpu_torch.ops.upfirdn2d import reflect_pad
 
@@ -247,6 +248,11 @@ class EqualizedConv2d(_Init):
         self.bias.zero_()
 
     def forward(self, x):
+        y = self.convolve(x)
+        return y + self.bias.to(y.dtype)
+
+    def convolve(self, x):
+        """The convolution without its bias."""
         with saveable_kernel():
             w = self.weight.to(x.dtype)
         k = w.shape[-1]
@@ -264,7 +270,7 @@ class EqualizedConv2d(_Init):
             y = conv2d(nearest_upsample2x(x), w, padding=k // 2)
         else:
             y = conv2d(x, w, padding=k // 2)
-        return y + self.bias.to(y.dtype)
+        return y
 
 
 # ---------------------------------------------------------------------------
@@ -282,10 +288,14 @@ class StyleMod(nn.Module):
         self.lin = EqualizedLinear(style_dim, channels * 2)
 
     def forward(self, x, latent):
-        style = self.lin(latent)
-        scale = style[:, None, None, : self.channels]
-        shift = style[:, None, None, self.channels:]
-        return x * (scale + 1.0) + shift
+        return modulate(x, self.lin(latent))
+
+
+def modulate(x, style):
+    """x * (scale + 1) + shift, with ``style`` (B, 2C) = [scale, shift] for
+    x's C channels."""
+    c = x.shape[-1]
+    return x * (style[:, None, None, :c] + 1.0) + style[:, None, None, c:]
 
 
 class LayerEpilogue(nn.Module):
@@ -300,9 +310,9 @@ class LayerEpilogue(nn.Module):
 
 
 class NoiseInjection(_Init):
-    """Additive single-channel noise with a learned scalar gain (reference
-    stylegan2_layers.py:376-399). Pass ``noise`` (B, H, W, 1) to pin it;
-    otherwise it is drawn from ``generator``."""
+    """The learned scalar gain of additive single-channel noise (reference
+    stylegan2_layers.py:376-399); StyledConv adds ``gain * noise`` in its
+    epilogue (``styled_conv_epilogue``)."""
 
     def __init__(self):
         super().__init__()
@@ -311,12 +321,26 @@ class NoiseInjection(_Init):
     def reset_parameters(self, generator):
         self.weight.zero_()
 
-    def forward(self, x, noise=None, generator=None):
-        if noise is None:
-            b, h, w, _ = x.shape
-            noise = torch.randn((b, h, w, 1), generator=generator, device=x.device,
-                                dtype=x.dtype)
-        return x + self.weight.to(x.dtype) * noise
+    @staticmethod
+    def draw(b, h, w, like, generator=None):
+        """Noise (B, H, W, 1) in ``like``'s dtype and on its device, from
+        ``generator``."""
+        return torch.randn((b, h, w, 1), generator=generator, device=like.device, dtype=like.dtype)
+
+
+def styled_conv_epilogue(y, conv_bias, gain, noise, bias, act_bias, style):
+    """StyledConv's chain after its convolution, as PyTorch composes it: the
+    conv's bias, ``gain * noise`` (with ``noise`` None, none), StyledConv's
+    bias, leaky ReLU with the activation's bias and gain, the instance norm
+    and the modulation by ``style`` (B, 2C), the StyleMod linear's output.
+    ``y`` is the convolution's output before its bias. The plain version of
+    ``ops.styled_epilogue_cuda.styled_epilogue`` (the CPU tests' and the
+    grad and float32 paths' arithmetic)."""
+    y = y + conv_bias.to(y.dtype)
+    if noise is not None:
+        y = y + gain.to(y.dtype) * noise
+    y = fused_leaky_relu(y + bias.to(y.dtype), act_bias)
+    return modulate(instance_norm(y), style)
 
 
 class StyledConv(nn.Module):
@@ -326,9 +350,15 @@ class StyledConv(nn.Module):
 
     ``fused``: a non-upsampled 3x3 StyledConv in bfloat16 runs the whole chain
     as one fused op (``ops.styled_conv_cuda.styled_conv3x3``): the kernels on
-    the card, their plain versions on the CPU. Other configurations run the
-    composite, as in the JAX package. Same parameters; pinned noise is cast to
-    bfloat16 there, so float32 noise does not promote the fused chain."""
+    the card, their plain versions on the CPU. Same parameters; pinned noise
+    is cast to bfloat16 there, so float32 noise does not promote the fused
+    chain. Otherwise the convolution runs alone and its epilogue
+    (``styled_conv_epilogue``, the composite of the JAX package) follows; in
+    bfloat16 without grad, with noise drawn or pinned in bfloat16 and a
+    multiple of 8 channels, the epilogue is one op
+    (``ops.styled_epilogue_cuda.styled_epilogue``: the kernels on the card,
+    the composite on the CPU). Pinned float32 noise promotes the composite to
+    float32 (ROADMAP W6) and keeps it."""
 
     def __init__(self, in_ch, out_ch, kernel_size, style_dim, upsample=False,
                  use_noise=True, fused=False):
@@ -345,8 +375,7 @@ class StyledConv(nn.Module):
         if self.noise is not None:
             gain = self.noise.weight
             if noise is None:
-                noise = torch.randn((b, h, w, 1), generator=generator, device=x.device,
-                                    dtype=x.dtype)
+                noise = NoiseInjection.draw(b, h, w, x, generator)
         else:
             gain = torch.zeros(1, device=x.device)
             noise = torch.zeros((b, h, w, 1), device=x.device, dtype=x.dtype)
@@ -358,11 +387,27 @@ class StyledConv(nn.Module):
     def forward(self, x, style, noise=None, generator=None):
         if self.fused and x.dtype == torch.bfloat16:
             return self._fused(x, style, noise, generator)
-        y = self.conv(x)
-        if self.noise is not None:
-            y = self.noise(y, noise, generator)
-        y = self.activate(y + self.bias.reshape(-1).to(y.dtype))
-        return self.epi1(y, style)
+        gain = None
+        if self.noise is None:
+            noise = None
+        else:
+            gain = self.noise.weight
+            if noise is None:
+                # the conv's output shape; the conv draws nothing, so the
+                # generator gives what it gave when noise followed the conv
+                b, h, w, _ = x.shape
+                f = 2 if self.conv.upscale else 1
+                noise = NoiseInjection.draw(b, f * h, f * w, x, generator)
+        s = self.epi1.style_mod.lin(style)
+        if (x.dtype == torch.bfloat16 and not torch.is_grad_enabled()
+                and self.conv.weight.shape[0] % 8 == 0 and (noise is None or noise.dtype == x.dtype)):
+            return styled_epilogue(self.conv.convolve(x).contiguous(), self.conv.bias, gain,
+                                   None if noise is None else noise.contiguous(),
+                                   self.bias.reshape(-1), self.activate.bias, s)
+        # passed by position and held by no name here, the conv's output is the
+        # epilogue's alone: its first add frees it, as when the conv added its bias
+        return styled_conv_epilogue(self.conv.convolve(x), self.conv.bias, gain, noise,
+                                    self.bias.reshape(-1), self.activate.bias, s)
 
 
 class ToRGB(nn.Module):
