@@ -175,6 +175,32 @@ def test_rejects_non_cuda_devices():
                               e(1, 16), x)
 
 
+@pytest.mark.parametrize("need_dx", [True, False])
+def test_a_wrapper_around_the_backward_launches_keeps_the_counter(monkeypatch, need_dx):
+    """A tracer that wraps ``_bwd_cuda`` by its name (a span around the
+    backward's launches) leaves ``styled_conv3x3_bwd.launches`` on the op,
+    readable and counting (ROADMAP F8). The launches are stubbed: meta tensors
+    take the CUDA branch here."""
+    e = lambda *s, dt=torch.float32: torch.empty(s, dtype=dt, device="meta")  # noqa: E731
+    x = e(1, 4, 4, 16, dt=torch.bfloat16)
+    parts = []
+    outs = (e(1, 4, 4, 16) if need_dx else None, e(16, 16, 3, 3), e(1), e(16), e(1, 4, 16))
+    monkeypatch.setattr(sc, "_bwd_parts", lambda *args: (parts.append, outs))
+    raw, wrapped = sc._bwd_cuda, []
+
+    def tracer(*args, **kw):
+        wrapped.append(args[8])
+        return raw(*args, **kw)
+
+    monkeypatch.setattr(sc, "_bwd_cuda", tracer)
+    before = sc.styled_conv3x3_bwd.launches
+    got = sc.styled_conv3x3_bwd(x, e(16, 16, 3, 3), e(1, 4, 4, 1), x, e(1, 16), e(1, 16),
+                                e(1, 16), x, need_dx=need_dx)
+    assert sc.styled_conv3x3_bwd.launches == before + 1 and wrapped == [need_dx]
+    assert parts == ["dpre", "dw", "dx"][:3 if need_dx else 2]
+    assert (got[0] is None) == (not need_dx) and got[4].shape == got[5].shape == (1, 16)
+
+
 def _module_pair(rng, cin, cout, use_noise=True):
     """The port's StyledConv(fused=True) with seeded nonzero biases and noise
     gain, and JAX's StyledConv(fused=True) with the same weights (JAX arrays,
