@@ -23,21 +23,26 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    StyledConv epilogue (K7) at the generator's 512px batch-16 and 1024px
    batch-2 shapes against the composite (every element the composite's or
    that of the normalized value one bf16 step away), with its time, the
-   composite's and the byte bound;
+   composite's and the byte bound; the instance norm and what follows it
+   (K8) in every variant at the sites of the 512px batch-16 and 1024px
+   batch-2 extractions and an odd shape, against the composite in the same
+   way, deterministic, with its time, the composite's and the byte bound;
 3. path: 512px ``stylize`` at full width in bf16 with the fused tap and the
    guided filter, batch 1 then batch 8 pairs; then 1024px ``stylize_fused``
    (the blockwise correspondence) at batch 1; then 512px ``stylize`` with the
    fused StyledConv too (K6 22 times a call), its output against the unfused
    path's, and one 1024px ``stylize_fused`` call with it; each checks its
    output and the kernels it launched (K7 28 times a call, 6 with the fused
-   StyledConv);
+   StyledConv; K8 56 times a call, two launches at each of the extraction's
+   28 instance-norm sites);
 4. grid: a 512px 4x8 grid, dense and blockwise on the same banks, and a
    1024px 2x4 blockwise grid, with pairs/s amortized over extraction;
 5. train: 512px full-width training in bf16 with the fused tap at batch 4
    (D, G and D+R1 steps through ``train.steps``): step times, training
    images/s, peak memory, every loss, every network moving, and the
-   launches of K1 and K2 (K2 once per G step), K3 (none) and K7 (28 a D or
-   D+R1 step, none in a G step);
+   launches of K1 and K2 (K2 once per G step), K3 (none), K7 (28 a D or
+   D+R1 step, none in a G step) and K8 (56 a D or D+R1 step, none in a G
+   step);
    then ``remat_save_kernels`` off, on, off again and on again (the first
    D and G steps' losses bit-equal, no kernel prepared again in the first
    G backward with the knob on and some without it, its gradients on
@@ -227,6 +232,45 @@ EPI_SHAPES = [(3, 20, 36, 48, False), (1, 64, 64, 256, True),
                                                 (512, 256), (1024, 128)))]
 EPI_RECORD = (16, 512, 512, 128, True)
 EPI_FLIP_SHARE = 1e-3
+# K8 (the instance norm and what follows it) at the sites of one extraction
+# at 512px batch 16 (the batch-8 request) and at 1024px batch 2, each
+# distinct (shape, variant) once, then every variant at an odd shape. A
+# variant is (pre-bias, residual, activation): E1's activated convs (leaky
+# ReLU), its skips and the taps' padded inputs (nothing), ToSpatialCode[1]
+# (the conv's bias), the taps' and fuse blocks' convs (the conv's bias and
+# PReLU; the fuse blocks' second with the residual). The check is
+# EPI_FLIP_SHARE's: the kernel rounds where the composite rounds, and only
+# the statistics' summation order differs, which may move the normalized
+# value u by one bf16 step.
+LRELU, NONE, BIAS = (False, False, "lrelu"), (False, False, None), (True, False, None)
+PRELU, RES_PRELU = (True, False, "prelu"), (True, True, "prelu")
+
+
+def norm_act_sites(b, crop):
+    g = crop // 8
+    return [((b, crop, crop, 32), LRELU), ((b, crop // 2, crop // 2, 64), LRELU),
+            ((b, crop // 2, crop // 2, 64), NONE), ((b, crop // 4, crop // 4, 128), LRELU),
+            ((b, crop // 4, crop // 4, 128), NONE), ((b, g, g, 256), LRELU),
+            ((b, g, g, 256), NONE), ((b, g, g, 256), BIAS),
+            ((b, g + 2, g + 2, 512), NONE), ((b, g, g, 128), PRELU), ((b, g, g, 64), PRELU),
+            ((b, 2 * g + 2, 2 * g + 2, 512), NONE), ((b, 2 * g, 2 * g, 128), PRELU),
+            ((b, 2 * g, 2 * g, 64), PRELU), ((b, 4 * g + 2, 4 * g + 2, 256), NONE),
+            ((b, 4 * g, 4 * g, 128), PRELU), ((b, 4 * g, 4 * g, 64), PRELU),
+            ((b, g, g, 256), PRELU), ((b, g, g, 256), RES_PRELU),
+            ((b, 4 * g, 4 * g, 256), PRELU), ((b, 4 * g, 4 * g, 256), RES_PRELU)]
+
+
+NORM_ACT_CASES = (norm_act_sites(16, 512) + norm_act_sites(2, 1024)
+                  + [((3, 20, 36, 48), (pre, res, act)) for pre in (False, True)
+                     for res in (False, True) for act in (None, "lrelu", "prelu")])
+# the shapes whose device times one profiled call prints: the largest sites
+# without and with the residual, and the 1024px first conv
+NORM_ACT_PROFILED = {((16, 512, 512, 32), LRELU), ((16, 256, 256, 256), RES_PRELU),
+                     ((2, 1024, 1024, 32), LRELU)}
+# K8's launches an extraction (E1 and G's feature pass over a batch without
+# grad): 28 sites, two launches each. A stylize or stylize_fused call makes
+# one extraction, a D or D+R1 step one, a G step none (its passes carry grad).
+NORM_ACT_PER_EXTRACTION = 56
 # K5 (bias + leaky ReLU + gain) at these shapes; the first is the record. The
 # kernel rounds where the plain op rounds: bitwise equal in both dtypes
 # the JAX package's 1024px training mode (tools/bench_train.py --crop 1024
@@ -794,6 +838,122 @@ def styled_epilogue_phase(se, bw, card, shapes=None):
     return record
 
 
+def norm_act_inputs(g, shape, variant):
+    """Arguments of ``norm_act`` as a site hands them over: a conv output,
+    a nonzero float32 pre-bias and leaky ReLU bias, a PReLU slope, a bf16
+    residual of y's shape, as the variant asks."""
+    pre, res, act = variant
+    y = (torch.randn(shape, generator=g, device="cuda") * 0.7).bfloat16()
+    c = shape[-1]
+
+    def vec():
+        return torch.empty((c,), device="cuda").uniform_(-0.3, 0.3, generator=g)
+
+    return (y, vec() if pre else None,
+            torch.randn(shape, generator=g, device="cuda").bfloat16() if res else None,
+            vec() if act == "lrelu" else None,
+            torch.full((1,), 0.2, device="cuda") if act == "prelu" else None)
+
+
+def norm_act_against_composite(got, args):
+    """(the composite's output, the share of got's elements that differ from
+    it, the share that no step of one bf16 ulp of the normalized value u
+    explains), as ``epilogue_against_composite``."""
+    from ppst_tpu_torch.nn.layers import instance_norm, norm_act_chain, prelu
+    from ppst_tpu_torch.ops.fused_act import fused_leaky_relu
+
+    y, pre_bias, residual, act_bias, slope = args
+    want = norm_act_chain(*args)
+    u = instance_norm(y if pre_bias is None else y + pre_bias.to(y.dtype))
+
+    def after(v):
+        v = v if residual is None else v + residual
+        if act_bias is not None:
+            return fused_leaky_relu(v, act_bias)
+        return v if slope is None else prelu(v, slope)
+
+    if not torch.equal(after(u), want):
+        raise AssertionError("the check's steps up to u are not the composite's")
+    down, up = bf16_neighbours(u)
+    explained = (got == want) | (got == after(down)) | (got == after(up))
+    # within 2^-16 of the image's mean (|u| well under 2^-9, where a bf16
+    # step is under 2^-16) the statistics' float32 rounding (~1e-7 of the
+    # moments) moves u by more than a step: there the output must lie within
+    # 2^-16 of the composite's
+    explained |= (u.float().abs() < 2 ** -9) & ((got.float() - want.float()).abs() <= 2 ** -16)
+    return want, (got != want).float().mean().item(), (~explained).float().mean().item()
+
+
+def norm_act_bound(shape, variant, bw):
+    """Least traffic of the op (``benchmark/roofline/norm_act.py``'s count):
+    y read once, the residual read once, out written once, the parameters."""
+    pre, res, act = variant
+    b, h, w, c = shape
+    params = c * pre + c * (act == "lrelu") + (act == "prelu")
+    nbytes = b * h * w * c * 2 * (2 + res) + 4 * params
+    return nbytes / bw * 1e3, nbytes
+
+
+def norm_act_phase(na, bw, card):
+    """K8's kernels against their plain version (the composite
+    ``nn.layers.norm_act_chain``, PyTorch's kernels on the card) in every
+    case of NORM_ACT_CASES (``norm_act_against_composite``, EPI_FLIP_SHARE),
+    determinism (three calls, one with the allocator's blocks moved), and at
+    the shapes of 64 x 64 and more the kernel's time beside the composite's
+    and the byte bound, with the two kernels' device times from one profiled
+    call at NORM_ACT_PROFILED; returns its record (the largest site with the
+    residual, the batch-16 first conv and the 1024px one, and the share of
+    the bound at every timed case)."""
+    from ppst_tpu_torch.nn.layers import norm_act_chain
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    record = {"shares": {}, "max_flip_share": 0.0}
+    launches0 = na.norm_act.launches
+    for shape, variant in NORM_ACT_CASES:
+        args = norm_act_inputs(g, shape, variant)
+        got = na.norm_act(*args)
+        torch.cuda.synchronize()
+        want, share, unexplained = norm_act_against_composite(got, args)
+        tag = f"{shape} {variant}"
+        print(f"[kernel] norm_act {tag}: {share:.3e} of the elements differ from the "
+              f"composite, {unexplained} not by one bf16 step of u (tolerance: under "
+              f"{EPI_FLIP_SHARE}, 0); max_abs_err "
+              f"{(got.float() - want.float()).abs().max().item()}", flush=True)
+        if not (got.shape == want.shape and got.dtype == torch.bfloat16
+                and torch.isfinite(got.float()).all().item() and unexplained == 0
+                and share < EPI_FLIP_SHARE):
+            raise AssertionError(f"norm_act disagrees with its plain version at {tag}")
+        for k in range(3):
+            if not torch.equal(got, repeat_with_churn(na.norm_act, args, k)):
+                raise AssertionError(f"norm_act is not deterministic at {tag}")
+        record["max_flip_share"] = max(record["max_flip_share"], share)
+        del got, want
+        if shape[1] < 64:
+            continue
+        bound_ms, nbytes = norm_act_bound(shape, variant, bw)
+        ms, plain_ms = cuda_ms(lambda: na.norm_act(*args), reps=10,
+                               other=lambda: norm_act_chain(*args))
+        print(f"[kernel] norm_act {tag}: {ms:.4f} ms, plain (the composite) {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms (bytes: {nbytes / 1e6:.1f} MB at {bw / 1e12} TB/s), "
+              f"{bound_ms / ms:.1%} of the bound; {card}", flush=True)
+        record["shares"][tag] = round(bound_ms / ms, 4)
+        if (shape, variant) in NORM_ACT_PROFILED:
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                na.norm_act(*args)
+                torch.cuda.synchronize()
+            device = {re.search(r"norm_act_(stats|apply)", e.key).group(0):
+                      e.device_time_total / 1e3
+                      for e in prof.key_averages() if "norm_act_" in e.key}
+            print(f"[kernel] norm_act {tag}: device ms a launch {device}", flush=True)
+            record[tag] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, device_ms=device)
+            if variant == RES_PRELU:
+                record.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                              device_ms=device)
+    record["check_launches"] = na.norm_act.launches - launches0
+    return record
+
+
 def sdpa_backend(q, k, v, scale):
     """The backend PyTorch's scaled_dot_product_attention picks for these
     inputs."""
@@ -857,13 +1017,14 @@ def corr_warp_phase(cw, bw, flops, card):
 
 def kernel_wrappers():
     """Every kernel wrapper of the port, each with its launch count."""
-    from ppst_tpu_torch.ops import (corr_warp_cuda, fused_act_cuda, styled_conv_cuda,
-                                    styled_epilogue_cuda, tap_cuda, upfirdn2d_cuda)
+    from ppst_tpu_torch.ops import (corr_warp_cuda, fused_act_cuda, norm_act_cuda,
+                                    styled_conv_cuda, styled_epilogue_cuda, tap_cuda,
+                                    upfirdn2d_cuda)
 
     return (tap_cuda.fused_tap_1x1, tap_cuda.fused_tap_1x1_bwd, corr_warp_cuda.corr_warp_blockwise,
             styled_conv_cuda.styled_conv3x3, styled_conv_cuda.styled_conv3x3_bwd,
             upfirdn2d_cuda.upfirdn2d_cuda, fused_act_cuda.fused_leaky_relu_cuda,
-            styled_epilogue_cuda.styled_epilogue)
+            styled_epilogue_cuda.styled_epilogue, norm_act_cuda.norm_act)
 
 
 def reset_launches():
@@ -882,15 +1043,27 @@ def epilogue_launches():
     return styled_epilogue.launches
 
 
+def check_norm_act(what, extractions):
+    """K8's launches since the last reset_launches(): NORM_ACT_PER_EXTRACTION
+    an extraction without grad in bf16; returns them."""
+    from ppst_tpu_torch.ops.norm_act_cuda import norm_act
+
+    if norm_act.launches != NORM_ACT_PER_EXTRACTION * extractions:
+        raise AssertionError(f"{what} launched K8 {norm_act.launches} times in {extractions} "
+                             f"extractions ({NORM_ACT_PER_EXTRACTION} each expected)")
+    return norm_act.launches
+
+
 # K4's and K5's launches on the path phases, each read just after a path ran
 # from counts set to 0 (no path of the port runs them), and the StyledConv
-# epilogue's (every bf16 generator pass without grad runs it)
+# epilogue's and K8's (every bf16 generator pass, and every extraction,
+# without grad runs them)
 STANDALONE_PATH_LAUNCHES = {"upfirdn2d_cuda": 0, "fused_leaky_relu_cuda": 0,
-                            "styled_epilogue": 0}
+                            "styled_epilogue": 0, "norm_act": 0}
 
 
 def read_standalone_launches():
-    """Adds K4's, K5's and the epilogue's launches since the last
+    """Adds K4's, K5's, the epilogue's and K8's launches since the last
     reset_launches() to STANDALONE_PATH_LAUNCHES."""
     for k in kernel_wrappers():
         if k.__name__ in STANDALONE_PATH_LAUNCHES:
@@ -1006,6 +1179,7 @@ def path_phase(tap_cuda, cw, PPSTConfig, PPSTModel, card):
     if cw.corr_warp_blockwise.launches:
         raise AssertionError("the dense stylize path launched the blockwise kernel")
     check_no_backward("stylize")
+    k8 = check_norm_act("stylize", calls)
     read_standalone_launches()
     # two G passes a request: the batched extraction and the decode
     if epi != 2 * EPI_PER_G_PASS[False] * calls:
@@ -1026,7 +1200,7 @@ def path_phase(tap_cuda, cw, PPSTConfig, PPSTModel, card):
         "batch1_latency_ms": lat, "batch8_pairs_per_s": pairs_s,
         "batch8_peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "stylize_calls": calls, "fused_tap_launches": launches,
-        "styled_epilogue_launches": epi, "card": card}), flush=True)
+        "styled_epilogue_launches": epi, "norm_act_launches": k8, "card": card}), flush=True)
     return launches
 
 
@@ -1054,6 +1228,7 @@ def fused_path_phase(tap_cuda, cw, PPSTConfig, PPSTModel, card):
     epi = epilogue_launches()
     peak = torch.cuda.max_memory_allocated() / 2**30
     check_no_backward("stylize_fused")
+    k8 = check_norm_act("stylize_fused", calls)
     read_standalone_launches()
     if epi != 2 * EPI_PER_G_PASS[False] * calls:
         raise AssertionError(f"stylize_fused launched the StyledConv epilogue {epi} times in "
@@ -1078,7 +1253,7 @@ def fused_path_phase(tap_cuda, cw, PPSTConfig, PPSTModel, card):
         "path": "stylize_fused", "crop": 1024, "dtype": "bfloat16", "fused_tap": True,
         "smooth_target": True, "batch1_latency_ms_p50": p50, "batch1_latency_ms": lat,
         "peak_mem_gib": peak, "calls": calls, "corr_warp_launches": k3,
-        "fused_tap_launches": k1, "styled_epilogue_launches": epi,
+        "fused_tap_launches": k1, "styled_epilogue_launches": epi, "norm_act_launches": k8,
         "corr_warp_ms_per_call": k3_ms,
         "corr_warp_share_of_p50": k3_ms / p50, "card": card}), flush=True)
     return k3
@@ -1129,6 +1304,7 @@ def styled_conv_path_phase(tap_cuda, cw, sc, PPSTConfig, PPSTModel, card):
                   sc.styled_conv3x3.launches)
     epi = epilogue_launches()
     check_no_backward("stylize with the fused StyledConv")
+    k8 = check_norm_act("stylize with the fused StyledConv", calls)
     read_standalone_launches()
     for out, b in ((out1, 1), (out8, 8)):
         if out.shape != (b, 512, 512, 3) or not torch.isfinite(out.float()).all().item():
@@ -1171,6 +1347,7 @@ def styled_conv_path_phase(tap_cuda, cw, sc, PPSTConfig, PPSTModel, card):
     first_ms = (time.perf_counter() - t0) * 1e3
     k6_1024, epi_1024 = sc.styled_conv3x3.launches, epilogue_launches()
     check_no_backward("1024px stylize_fused with the fused StyledConv")
+    check_norm_act("1024px stylize_fused with the fused StyledConv", 1)
     read_standalone_launches()
     if (out.shape != (1, 1024, 1024, 3) or not torch.isfinite(out.float()).all().item()
             or k6_1024 != 22 or cw.corr_warp_blockwise.launches != 4
@@ -1184,7 +1361,7 @@ def styled_conv_path_phase(tap_cuda, cw, sc, PPSTConfig, PPSTModel, card):
         "batch1_latency_ms_p50": statistics.median(lat), "batch1_latency_ms": lat,
         "batch8_pairs_per_s": pairs_s, "batch8_peak_mem_gib": peak, "stylize_calls": calls,
         "styled_conv_launches": k6, "fused_tap_launches": k1, "styled_epilogue_launches": epi,
-        "fused_vs_unfused_max_abs": mx, "fused_vs_unfused_mean_abs": mean,
+        "norm_act_launches": k8, "fused_vs_unfused_max_abs": mx, "fused_vs_unfused_mean_abs": mean,
         "stylize_fused_1024_first_call_ms": first_ms, "stylize_fused_1024_styled_conv_launches":
             k6_1024, "card": card}), flush=True)
     return k6
@@ -1324,6 +1501,8 @@ def train_phase(tap_cuda, cw, sc, PPSTConfig, PPSTModel, card, fused_styled_conv
                   cw.corr_warp_blockwise.launches)
     k6, k6b = sc.styled_conv3x3.launches, sc.styled_conv3x3_bwd.launches
     epi = epilogue_launches()
+    # K8: the extraction of each D and D+R1 step, none in a G step
+    k8 = check_norm_act("training", counts["d"] + counts["r1"])
     read_standalone_launches()
     t = {k: statistics.median(v[1:]) for k, v in times.items()}
     img_s = 2 * batch / (t["d"] + t["g"] + (t["r1"] - t["d"]) / 16) * 1e3
@@ -1368,7 +1547,7 @@ def train_phase(tap_cuda, cw, sc, PPSTConfig, PPSTModel, card, fused_styled_conv
         "losses": losses, "steps": counts,
         "fused_tap_launches": k1, "fused_tap_bwd_launches": k2, "corr_warp_launches": k3,
         "styled_conv_launches": k6, "styled_conv_bwd_launches": k6b,
-        "styled_epilogue_launches": epi, "card": card}), flush=True)
+        "styled_epilogue_launches": epi, "norm_act_launches": k8, "card": card}), flush=True)
     return k2, k6, k6b
 
 
@@ -1400,8 +1579,8 @@ def validate_phase(card, steps=VALIDATE_STEPS, lpips_steps=LPIPS_STEPS):
     (bf16, the fused tap). Each run must be finite and move every network,
     launch the kernels its configuration runs (K1 once a D step and twice a
     G step, K2 once a G step, K6 22 a D step and 66 a G step, its backward
-    22 a G step, the StyledConv epilogue 28 a bf16 D step, 6 with K6) and no
-    other, and each bf16 run's G-side tail means must
+    22 a G step, the StyledConv epilogue 28 a bf16 D step, 6 with K6, K8 56
+    a bf16 D step) and no other, and each bf16 run's G-side tail means must
     stay within VALIDATE_G_REL of the float32 run's. Returns each kernel's
     launches over the phase."""
     from ppst_tpu_torch.tools import bf16_validation, lpips_ablation, stream
@@ -1432,7 +1611,8 @@ def validate_phase(card, steps=VALIDATE_STEPS, lpips_steps=LPIPS_STEPS):
                 "fused_tap_1x1_bwd": n if fused_tap else 0,
                 "styled_conv3x3": 88 * n if fused_sc else 0,
                 "styled_conv3x3_bwd": 22 * n if fused_sc else 0,
-                "styled_epilogue": 2 * EPI_PER_G_PASS[fused_sc] * n if bf16 else 0}
+                "styled_epilogue": 2 * EPI_PER_G_PASS[fused_sc] * n if bf16 else 0,
+                "norm_act": NORM_ACT_PER_EXTRACTION * n if bf16 else 0}
         if not stream.finite(run.rows):
             failures.append(f"{name}: non-finite losses")
         still = [net for net, d in run.moved.items() if not d > 0]
@@ -1759,7 +1939,7 @@ def cli_train_eval_phase(tap_cuda, card):
                                  tap_cuda.fused_tap_1x1_bwd.launches))
                 for k in kernel_wrappers():
                     if k.__name__ not in ("fused_tap_1x1", "fused_tap_1x1_bwd",
-                                          "styled_epilogue") and k.launches:
+                                          "styled_epilogue", "norm_act") and k.launches:
                         raise AssertionError(f"the training CLI launched {k.__name__}")
                 read_standalone_launches()
         finally:
@@ -1875,7 +2055,8 @@ def pak_grid_phase(tap_cuda, card):
             secs.append(time.perf_counter() - t0)
             launches.append(tap_cuda.fused_tap_1x1.launches)
             for k in kernel_wrappers():
-                if k.__name__ not in ("fused_tap_1x1", "styled_epilogue") and k.launches:
+                if (k.__name__ not in ("fused_tap_1x1", "styled_epilogue", "norm_act")
+                        and k.launches):
                     raise AssertionError(f"the grid CLI launched {k.__name__}")
             read_standalone_launches()
             pages[mode] = os.path.join(out, "ppst", "results", "contentstylegridgeneration",
@@ -2017,7 +2198,8 @@ def launcher_phase(tap_cuda, card):
             for s, h in handlers.items():
                 signal.signal(s, h)
         for k in kernel_wrappers():
-            if k.__name__ not in ("fused_tap_1x1", "fused_tap_1x1_bwd", "styled_epilogue") \
+            if k.__name__ not in ("fused_tap_1x1", "fused_tap_1x1_bwd", "styled_epilogue",
+                                  "norm_act") \
                     and k.launches:
                 raise AssertionError(f"the launcher's runs launched {k.__name__}")
 
@@ -2579,8 +2761,9 @@ def cli_phase():
 
 def build_phase():
     """Build every kernel source at once, one nvcc each, and load them."""
-    from ppst_tpu_torch.ops import (_nvcc, corr_warp_cuda, fused_act_cuda, styled_conv_cuda,
-                                    styled_epilogue_cuda, tap_cuda, upfirdn2d_cuda)
+    from ppst_tpu_torch.ops import (_nvcc, corr_warp_cuda, fused_act_cuda, norm_act_cuda,
+                                    styled_conv_cuda, styled_epilogue_cuda, tap_cuda,
+                                    upfirdn2d_cuda)
 
     def build(name):
         t0 = time.perf_counter()
@@ -2588,14 +2771,14 @@ def build_phase():
         return time.perf_counter() - t0
 
     names = ("tap", "tap_bwd", "corr_warp", "styled_conv", "styled_conv_bwd", "upfirdn2d",
-             "fused_act", "styled_epilogue")
+             "fused_act", "styled_epilogue", "norm_act")
     with ThreadPoolExecutor(len(names)) as pool:
         for name, secs in zip(names, pool.map(build, names)):
             print(f"[build] csrc/{name}.cu built in {secs:.1f} s", flush=True)
-    # K1's, K2's, K3's, K6's, K4's and the epilogue's registers, shared memory
-    # and spills, as ptxas reported them
+    # K1's, K2's, K3's, K6's, K4's, the epilogue's and K8's registers, shared
+    # memory and spills, as ptxas reported them
     for name in ("tap", "tap_bwd", "corr_warp", "styled_conv", "styled_conv_bwd", "upfirdn2d",
-                 "styled_epilogue"):
+                 "styled_epilogue", "norm_act"):
         for line in _nvcc.ptxas_summary(_nvcc.build(_nvcc.PKG / "csrc" / f"{name}.cu")):
             print(f"[build] ptxas {name}.cu {line}", flush=True)
     tap_cuda._lib()
@@ -2606,6 +2789,7 @@ def build_phase():
     upfirdn2d_cuda._lib()
     fused_act_cuda._lib()
     styled_epilogue_cuda._lib()
+    norm_act_cuda._lib()
 
 
 def phase(name, fn, *args):
@@ -2621,8 +2805,9 @@ def main():
         return 1
     from ppst_tpu_torch.models.config import PPSTConfig
     from ppst_tpu_torch.models.ppst import PPSTModel
-    from ppst_tpu_torch.ops import (corr_warp_cuda, fused_act_cuda, styled_conv_cuda,
-                                    styled_epilogue_cuda, tap_cuda, upfirdn2d_cuda)
+    from ppst_tpu_torch.ops import (corr_warp_cuda, fused_act_cuda, norm_act_cuda,
+                                    styled_conv_cuda, styled_epilogue_cuda, tap_cuda,
+                                    upfirdn2d_cuda)
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -2642,6 +2827,7 @@ def main():
     k4 = phase("kernel upfirdn2d", fir_phase, upfirdn2d_cuda, bw, card)
     k5 = phase("kernel fused_leaky_relu", act_phase, fused_act_cuda, bw, card)
     ke = phase("kernel styled_epilogue", styled_epilogue_phase, styled_epilogue_cuda, bw, card)
+    k8 = phase("kernel norm_act", norm_act_phase, norm_act_cuda, bw, card)
     k1_launches = phase("path stylize 512px", path_phase, tap_cuda, corr_warp_cuda,
                         PPSTConfig, PPSTModel, card)
     k3_launches = phase("path stylize_fused 1024px", fused_path_phase, tap_cuda, corr_warp_cuda,
@@ -2737,6 +2923,14 @@ def main():
          "check_launches": ke["check_launches"], "max_flip_share": ke["max_flip_share"],
          "ms": ke["ms"], "plain_ms": ke["plain_ms"],
          "bound_ms": ke["bound_ms"], "bound_by": ke["bound_by"], "device_ms": ke["device_ms"],
+         "library_ms": None},
+        # K8 replaces no TPU kernel either (XLA fused the chain); its record
+        # is the largest site with the residual
+        {"name": "norm_act", "route": "cuda", "source": "ppst_tpu_torch/csrc/norm_act.cu",
+         "replaces": None, "launches": STANDALONE_PATH_LAUNCHES["norm_act"],
+         "check_launches": k8["check_launches"], "max_flip_share": k8["max_flip_share"],
+         "ms": k8["ms"], "plain_ms": k8["plain_ms"], "bound_ms": k8["bound_ms"],
+         "bound_by": k8["bound_by"], "device_ms": k8["device_ms"], "shares": k8["shares"],
          "library_ms": None},
     ]}), flush=True)
     print(card, flush=True)

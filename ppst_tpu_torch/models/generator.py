@@ -40,7 +40,7 @@ from ppst_tpu_torch.nn.layers import (
     StyledConv,
     ToRGB,
     TorchConv2d,
-    instance_norm,
+    instance_norm_act,
     pad_hw,
 )
 from ppst_tpu_torch.ops.corr import adaptive_avg_pool, resize_bilinear
@@ -110,7 +110,8 @@ class UpsamplingResnetBlock(nn.Module):
 
 class _ResidualBlock(nn.Module):
     """Plain residual block with one PReLU shared after both convs
-    (reference generator.py:10-32)."""
+    (reference generator.py:10-32): two sites of
+    ``nn.layers.instance_norm_act``, the second adding the block's input."""
 
     def __init__(self, channels):
         super().__init__()
@@ -119,16 +120,19 @@ class _ResidualBlock(nn.Module):
         self.prelu = PReLU()
 
     def forward(self, x):
-        y = self.prelu(instance_norm(self.conv1(_pad_replicate(x, 1))))
-        y = instance_norm(self.conv2(_pad_replicate(y, 1)))
-        return self.prelu(y + x)
+        conv1, conv2, slope = self.conv1, self.conv2, self.prelu.weight
+        y = instance_norm_act(conv1.convolve(_pad_replicate(x, 1)), pre_bias=conv1.bias,
+                              slope=slope)
+        return instance_norm_act(conv2.convolve(_pad_replicate(y, 1)), pre_bias=conv2.bias,
+                                 residual=x, slope=slope)
 
 
 class _FeatureTap(nn.Module):
     """Per-resolution feature tap (reference generator.py:174-224: layer32/
     64/128 = padded 3x3 stack, layer256 = 1x1 stack). Children carry the
     reference Sequential's indices: 2 and 6 are the convs, 4 and 8 the
-    PReLUs. The leading instance norm runs on the padded input.
+    PReLUs. The leading instance norm runs on the padded input; each norm
+    and what follows it is one site (``nn.layers.instance_norm_act``).
 
     ``fused``: the 1x1 stack in bfloat16 runs as one fused chain
     (``ops.tap_cuda.fused_tap_1x1``): the kernel on the card, its plain
@@ -146,15 +150,15 @@ class _FeatureTap(nn.Module):
 
     def forward(self, x):
         conv1, prelu1, conv2, prelu2 = (self._modules[k] for k in ("2", "4", "6", "8"))
-        if self.conv1x1:
-            if self.fused and x.dtype == torch.bfloat16:
-                return fused_tap_1x1(x.contiguous(), conv1.weight[:, :, 0, 0], conv1.bias,
-                                     prelu1.weight,
-                                     conv2.weight[:, :, 0, 0], conv2.bias, prelu2.weight)
-            y = prelu1(instance_norm(conv1(instance_norm(x))))
-            return prelu2(instance_norm(conv2(y)))
-        y = prelu1(instance_norm(conv1(instance_norm(_pad_replicate(x, 1)))))
-        return prelu2(instance_norm(conv2(_pad_replicate(y, 1))))
+        if self.conv1x1 and self.fused and x.dtype == torch.bfloat16:
+            return fused_tap_1x1(x.contiguous(), conv1.weight[:, :, 0, 0], conv1.bias,
+                                 prelu1.weight, conv2.weight[:, :, 0, 0], conv2.bias,
+                                 prelu2.weight)
+        pad = (lambda t: t) if self.conv1x1 else (lambda t: _pad_replicate(t, 1))
+        y = instance_norm_act(pad(x))
+        y = instance_norm_act(conv1.convolve(y), pre_bias=conv1.bias, slope=prelu1.weight)
+        return instance_norm_act(conv2.convolve(pad(y)), pre_bias=conv2.bias,
+                                 slope=prelu2.weight)
 
 
 class Generator(nn.Module):

@@ -31,6 +31,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ppst_tpu_torch.ops.fused_act import fused_leaky_relu, scaled_leaky_relu
+from ppst_tpu_torch.ops.norm_act_cuda import norm_act
 from ppst_tpu_torch.ops.styled_conv_cuda import styled_conv3x3
 from ppst_tpu_torch.ops.styled_epilogue_cuda import styled_epilogue
 from ppst_tpu_torch.ops.upfirdn2d import blur as blur_op
@@ -74,6 +75,40 @@ def instance_norm(x, eps: float = 1e-5):
     else:
         var = x32.var((1, 2), keepdim=True, unbiased=False)
     return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def prelu(x, weight):
+    """Single-parameter PReLU: x where x >= 0, else weight * x."""
+    return x.clamp_min(0) + weight.to(x.dtype) * x.clamp_max(0)
+
+
+def norm_act_chain(y, pre_bias=None, residual=None, act_bias=None, slope=None):
+    """An instance norm and what follows it, as PyTorch composes it: ``y`` (a
+    convolution's output) plus ``pre_bias`` (the conv's bias), the instance
+    norm, plus ``residual``, then leaky ReLU x sqrt(2) with ``act_bias`` or
+    PReLU with ``slope`` (each argument None: that step left out). The plain
+    version of ``ops.norm_act_cuda.norm_act`` (the CPU tests' and the grad
+    and float32 paths' arithmetic)."""
+    if pre_bias is not None:
+        y = y + pre_bias.to(y.dtype)
+    y = instance_norm(y)
+    if residual is not None:
+        y = y + residual
+    if act_bias is not None:
+        return fused_leaky_relu(y, act_bias)
+    return y if slope is None else prelu(y, slope)
+
+
+def instance_norm_act(y, pre_bias=None, residual=None, act_bias=None, slope=None):
+    """``norm_act_chain`` at an instance-norm site: in bfloat16 without grad,
+    with a residual of y's dtype and a multiple of 8 channels, one op
+    (``ops.norm_act_cuda.norm_act``, called as ``norm_act`` here: the kernels
+    on the card, the composite on the CPU); else the composite."""
+    if (y.dtype == torch.bfloat16 and not torch.is_grad_enabled() and y.shape[-1] % 8 == 0
+            and (residual is None or residual.dtype == y.dtype)):
+        return norm_act(y.contiguous(), pre_bias,
+                        None if residual is None else residual.contiguous(), act_bias, slope)
+    return norm_act_chain(y, pre_bias, residual, act_bias, slope)
 
 
 def pad_hw(x, pad, mode: str = "constant"):
@@ -151,6 +186,13 @@ class EqualConv2d(_Init):
             self.bias.zero_()
 
     def forward(self, x):
+        y = self.convolve(x)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y
+
+    def convolve(self, x):
+        """The convolution without its bias."""
         with saveable_kernel():
             w = self.weight.to(x.dtype) * self.scale
             if self.blur2d is not None:
@@ -159,10 +201,7 @@ class EqualConv2d(_Init):
                 comp = F.conv2d(w.reshape(o * i, 1, k, k), self.blur2d.to(w.dtype)[None, None],
                                 padding=t - 1)
                 w = comp.reshape(o, i, k + t - 1, k + t - 1)
-        y = conv2d(x, w, self.stride, self.padding)
-        if self.bias is not None:
-            y = y + self.bias.to(y.dtype)
-        return y
+        return conv2d(x, w, self.stride, self.padding)
 
 
 class EqualLinear(_Init):
@@ -434,7 +473,8 @@ class ConvLayer(nn.Module):
     """[Blur if downsample] -> EqualConv2d -> [InstanceNorm] -> activation
     (reference stylegan2_layers.py:497-555). A downsampling conv folds its
     antialias blur into the kernel; a one-tap blur (no antialiasing) runs
-    as its own pass."""
+    as its own pass. With the instance norm, the conv's bias, the norm and
+    the fused leaky ReLU are one site (``instance_norm_act``)."""
 
     def __init__(self, in_ch, out_ch, kernel_size, downsample=False,
                  blur_kernel: Sequence[int] = (1, 3, 3, 1), bias=True, activate=True,
@@ -473,9 +513,12 @@ class ConvLayer(nn.Module):
             x = blur_op(x, self.blur[0], self.blur[1], reflection_pad=self.reflection_pad)
         elif self.pre_pad is not None:
             x = reflect_pad(x, *self.pre_pad)
-        y = self.Conv(x)
         if self.norm == "in":
-            y = instance_norm(y)
+            # the conv's bias, the norm and the activation's bias as one site
+            y = instance_norm_act(self.Conv.convolve(x), pre_bias=self.Conv.bias,
+                                  act_bias=None if self.Act is None else self.Act.bias)
+            return scaled_leaky_relu(y) if self.activate and self.Act is None else y
+        y = self.Conv(x)
         if self.activate:
             y = self.Act(y) if self.Act is not None else scaled_leaky_relu(y)
         return y
@@ -515,7 +558,7 @@ class PReLU(_Init):
         self.weight.fill_(0.25)
 
     def forward(self, x):
-        return x.clamp_min(0) + self.weight.to(x.dtype) * x.clamp_max(0)
+        return prelu(x, self.weight)
 
 
 class TorchConv2d(_Init):
@@ -533,7 +576,11 @@ class TorchConv2d(_Init):
         _uniform_(self.bias, bound, generator)
 
     def forward(self, x):
-        return conv2d(x, self.weight.to(x.dtype)) + self.bias.to(x.dtype)
+        return self.convolve(x) + self.bias.to(x.dtype)
+
+    def convolve(self, x):
+        """The convolution without its bias."""
+        return conv2d(x, self.weight.to(x.dtype))
 
 
 class TorchLinear(_Init):

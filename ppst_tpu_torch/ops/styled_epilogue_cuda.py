@@ -26,11 +26,8 @@ import functools
 import torch
 
 from ppst_tpu_torch.ops import _nvcc
+from ppst_tpu_torch.ops._slabs import MAX_BATCH, MAX_C, counters, plan, threads
 from ppst_tpu_torch.util.spans import span
-
-_THREADS = 256  # threads a block, at most: C / 8 channel groups x pixel rows
-_MAX_C = 2048
-_MAX_BATCH = 65535  # the grid's second dimension
 
 
 # ppst_styled_epilogue's parameters: y, noise, the three biases, gain, style;
@@ -54,25 +51,6 @@ def _lib():
     return lib
 
 
-def threads(c: int) -> tuple:
-    """(threads a block, pixel rows a block step) for C channels: C / 8
-    threads a pixel row, as many rows as fit in ``_THREADS``."""
-    cols = c // 8
-    rows = max(1, _THREADS // cols)
-    return cols * rows, rows
-
-
-def plan(batch: int, n: int, c: int, sms: int, resident: int) -> int:
-    """Slabs an image for B images of n pixels and C channels on a card of
-    ``sms`` SMs that holds ``resident`` blocks an SM: as many as fit in one
-    wave of blocks over the card (a block more would wait for a second
-    wave), as far as the pixels allow (a slab holds at least one pixel row
-    for each thread of its block)."""
-    _, rows = threads(c)
-    want = max(1, resident) * sms // batch
-    return max(1, min(want, n // rows))
-
-
 @functools.lru_cache(maxsize=None)
 def _card(device: torch.device, c: int) -> tuple:
     """(SMs, blocks of either pass an SM holds) on ``device`` for C channels."""
@@ -91,9 +69,9 @@ def check_inputs(y, conv_bias, gain, noise, bias, act_bias, style):
         raise ValueError(f"{name}: y must be contiguous bf16 (B, H, W, C), got {y.dtype} "
                          f"{tuple(y.shape)} strides {y.stride()}")
     b, h, w, c = y.shape
-    if c % 8 or not 8 <= c <= _MAX_C or not 1 <= b <= _MAX_BATCH or h * w < 1:
-        raise ValueError(f"{name}: C must be a multiple of 8 in [8, {_MAX_C}] and B in "
-                         f"[1, {_MAX_BATCH}], got {tuple(y.shape)}")
+    if c % 8 or not 8 <= c <= MAX_C or not 1 <= b <= MAX_BATCH or h * w < 1:
+        raise ValueError(f"{name}: C must be a multiple of 8 in [8, {MAX_C}] and B in "
+                         f"[1, {MAX_BATCH}], got {tuple(y.shape)}")
     if y.data_ptr() % 16:
         raise ValueError(f"{name}: y must be 16-byte aligned")
     for label, v in (("conv_bias", conv_bias), ("bias", bias), ("act_bias", act_bias)):
@@ -140,19 +118,6 @@ def styled_epilogue(y, conv_bias, gain, noise, bias, act_bias, style):
         return _launch(y, conv_bias, gain, noise, bias, act_bias, style)
 
 
-# Per (device, stream): the kernels' ticket counters, zeroed once here; each
-# launch leaves them at 0 again for the next on the same stream.
-_COUNTERS: dict = {}
-
-
-def _counters(device: torch.device, stream: int, count: int) -> torch.Tensor:
-    key = (device.index, stream)
-    buf = _COUNTERS.get(key)
-    if buf is None or buf.numel() < count:
-        buf = _COUNTERS[key] = torch.zeros((count,), dtype=torch.int32, device=device)
-    return buf
-
-
 def _launch(y, conv_bias, gain, noise, bias, act_bias, style):
     check_inputs(y, conv_bias, gain, noise, bias, act_bias, style)
     b, h, w, c = y.shape
@@ -165,13 +130,13 @@ def _launch(y, conv_bias, gain, noise, bias, act_bias, style):
         scratch = torch.empty((lib.ppst_styled_epilogue_scratch_floats(b, c, slabs),),
                               dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        counters = _counters(dev, stream, lib.ppst_styled_epilogue_counters(b, slabs))
+        tickets = counters(dev, stream, lib.ppst_styled_epilogue_counters(b, slabs))
         # without noise the kernels read a float where the gain would be, and ignore it
         gain_ptr = (conv_bias if gain is None else gain).data_ptr()
         err = lib.ppst_styled_epilogue(
             y.data_ptr(), None if noise is None else noise.data_ptr(), conv_bias.data_ptr(),
             bias.data_ptr(), act_bias.data_ptr(), gain_ptr, style.data_ptr(), style.stride(0),
-            out.data_ptr(), scratch.data_ptr(), counters.data_ptr(), b, n, c, slabs, stream)
+            out.data_ptr(), scratch.data_ptr(), tickets.data_ptr(), b, n, c, slabs, stream)
     _nvcc.check(lib, err, "styled_epilogue")
     styled_epilogue.launches += 1
     return out

@@ -17,6 +17,7 @@ from ppst_tpu_torch.models.config import PPSTConfig
 from ppst_tpu_torch.models.generator import Generator, make_fixed_noise
 from ppst_tpu_torch.nn import layers
 from ppst_tpu_torch.nn.layers import StyledConv, init_weights
+from ppst_tpu_torch.ops import _slabs
 from ppst_tpu_torch.ops import styled_epilogue_cuda as se
 
 NARROW = dict(crop_size=64, netE_scale_capacity=0.25, netE2_scale_capacity=0.25,
@@ -317,4 +318,4 @@ def test_c_entry_takes_what_the_wrapper_passes():
              "long long": ctypes.c_longlong, "int": ctypes.c_int}
     assert [ctype[a.rsplit(" ", 1)[0].strip()] for a in sig.split(",")] == se.ENTRY_ARGTYPES
     consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
-    assert (int(consts["kThreads"]), int(consts["kMaxC"])) == (se._THREADS, se._MAX_C)
+    assert (int(consts["kThreads"]), int(consts["kMaxC"])) == (_slabs.THREADS, _slabs.MAX_C)
