@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_train_common import NARROW_G, rel_err
 
 from ppst_tpu.models import generator as jg
 from ppst_tpu.models.config import PPSTConfig as JaxConfig
@@ -39,9 +40,7 @@ from ppst_tpu_torch.models.config import PPSTConfig
 from ppst_tpu_torch.models.ppst import PPSTModel
 from ppst_tpu_torch.nn import layers as tl
 
-NARROW = dict(crop_size=64, netE_scale_capacity=0.25, netE2_scale_capacity=0.25,
-              global_code_ch=64, spatial_code_ch=16, netG_resnet_ch=32,
-              netG_scale_capacity=0.125, fused_tap=True)
+NARROW = dict(NARROW_G, fused_tap=True)
 RATIO = 1.5  # port bf16 error / JAX bf16 error that marks a misplaced cast
 
 
@@ -58,11 +57,6 @@ def _sd(m):
     return _SD({k: v.detach().numpy() for k, v in m.state_dict().items()})
 
 
-def _rel(a, b, rms):
-    d = np.abs(a - b)
-    return d.mean() / rms, d.max() / rms
-
-
 def _distances(port_fn, jax_fn, args):
     """(port bf16 vs f32, JAX bf16 vs f32, port bf16 vs JAX bf16), each as
     (mean, max) relative to the RMS of JAX's float32 output."""
@@ -77,7 +71,7 @@ def _distances(port_fn, jax_fn, args):
     t16, j16 = out16.float().numpy(), np.asarray(j16.astype(jnp.float32))
     rms = np.sqrt(np.mean(j32 ** 2))
     np.testing.assert_allclose(t32, j32, rtol=0, atol=1e-3 * rms)  # the float32 paths agree
-    return _rel(t16, t32, rms), _rel(j16, j32, rms), _rel(t16, j16, rms)
+    return rel_err(t16, t32, rms), rel_err(j16, j32, rms), rel_err(t16, j16, rms)
 
 
 def _styled_conv_case(rng, up, hw):
@@ -216,7 +210,7 @@ def generator_outputs():
 
 
 def _g_rel(outs, a, b):
-    return [_rel(outs[a][i], outs[b][i], np.sqrt(np.mean(outs["jax32"][i] ** 2)))[0]
+    return [rel_err(outs[a][i], outs[b][i], np.sqrt(np.mean(outs["jax32"][i] ** 2)))[0]
             for i in range(3)]
 
 

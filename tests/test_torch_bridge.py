@@ -9,6 +9,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+from test_torch_train_common import NARROW, jax_lpips, jax_state
 
 from ppst_tpu.models.config import PPSTConfig as JaxConfig
 from ppst_tpu.models.discriminator import Discriminator as JaxD
@@ -22,9 +23,6 @@ from ppst_tpu_torch.models.ppst import PPSTModel
 from ppst_tpu_torch.util.from_flax import from_flax, lpips_from_flax, rscl_from_flax
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-NARROW = dict(crop_size=64, netE_scale_capacity=0.25, netE2_scale_capacity=0.25,
-              global_code_ch=64, spatial_code_ch=16, netG_resnet_ch=32,
-              netG_scale_capacity=0.125, netD_scale_capacity=0.125)
 
 
 def _flax_tree():
@@ -99,8 +97,6 @@ def test_load_reference_checkpoint_without_d(tmp_path):
 def test_lpips_and_rscl_bridge():
     """The LPIPS weights and the RSCL state carry from ppst_tpu's layouts to
     the port's unchanged (the inverse of the tests' own carry to JAX)."""
-    from test_torch_train_common import jax_lpips, jax_state
-
     model = PPSTModel(PPSTConfig(**NARROW), device="cpu")
     sd = lpips_from_flax(jax_lpips(model.lpips))
     assert set(sd) == set(model.lpips.state_dict())

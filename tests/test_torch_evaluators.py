@@ -94,7 +94,9 @@ def models():
     """The port's NARROW model and ppst_tpu's with its weights. The noise
     gains are zero at init, so neither side's noise draws enter."""
     model = PPSTModel(PPSTConfig(**NARROW), device="cpu", seed=2)
-    return model, JaxModel(JaxConfig(**NARROW), lpips_variables={}), jax_params(model)
+    jmodel = JaxModel(JaxConfig(**NARROW), lpips_variables={})
+    jmodel.snapshot_core = jax.jit(jmodel.snapshot_core)  # get_visuals_for_snapshot's core
+    return model, jmodel, jax_params(model)
 
 
 def test_snapshot_visuals_match_jax(models, rng):

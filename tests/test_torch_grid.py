@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 from PIL import Image
+from test_torch_train_common import NARROW_G as NARROW
 from test_torch_train_common import seed_checkpoint
 
 from ppst_tpu.models.config import PPSTConfig as JaxConfig
@@ -32,9 +33,6 @@ from ppst_tpu_torch.models.ppst import PPSTModel, take_rows
 from ppst_tpu_torch.nn.layers import NoiseInjection
 from ppst_tpu_torch.util.util import tensor2im
 
-NARROW = dict(crop_size=64, netE_scale_capacity=0.25, netE2_scale_capacity=0.25,
-              global_code_ch=64, spatial_code_ch=16, netG_resnet_ch=32,
-              netG_scale_capacity=0.125)
 CROP = 64
 CI, SI = [0, 0, 1, 1], [0, 1, 0, 1]
 ROOT = Path(__file__).resolve().parent.parent

@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 from PIL import Image
-from test_torch_train_common import NARROW, assert_losses, batch, jax_params, jax_state
+from test_torch_train_common import NARROW, assert_losses, batch, jax_params, jax_state, jax_steps
 
 from ppst_tpu.models.config import PPSTConfig as JaxConfig
 from ppst_tpu.models.ppst import PPSTModel as JaxModel
@@ -261,16 +261,9 @@ def test_resumed_d_step_matches_jax(jax_run):
     run, tree = jax_run
     bundle = create_model(_opt(run))
     real, mask = batch(seed=4)
-    jmodel = JaxModel(JaxConfig(**NARROW), lpips_variables={})
     params, state = tree["params"], tree["state"]
-
-    def d_loss(d, r, m):
-        losses, _ = jmodel.discriminator_losses(dict(params, D=d), state, r, m,
-                                                jax.random.PRNGKey(0))
-        return sum(losses.values()), losses
-
-    (_, want), grads = jax.jit(jax.value_and_grad(d_loss, has_aux=True))(
-        params["D"], jnp.asarray(real), jnp.asarray(mask))
+    (_, want), grads = jax_steps(())["d"](params["D"], params, state, {}, jnp.asarray(real),
+                                         jnp.asarray(mask))
     steps = TrainSteps(bundle.model, bundle.optimizers)
     got = steps.d_step(torch.from_numpy(real), torch.from_numpy(mask),
                        torch.Generator().manual_seed(0))

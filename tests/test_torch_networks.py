@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_train_common import NARROW_G as NARROW
 
 from ppst_tpu.models.config import PPSTConfig as JaxConfig
 from ppst_tpu.models.encoder_col import ColorEncoder as JaxE2
@@ -20,9 +21,6 @@ from ppst_tpu_torch.models.generator import make_fixed_noise
 from ppst_tpu_torch.models.ppst import PPSTModel
 from ppst_tpu_torch.nn.layers import NoiseInjection
 
-NARROW = dict(crop_size=64, netE_scale_capacity=0.25, netE2_scale_capacity=0.25,
-              global_code_ch=64, spatial_code_ch=16, netG_resnet_ch=32,
-              netG_scale_capacity=0.125)
 B, S, GRID = 2, 64, 8
 # float32 through ~30 convs and instance norms; sums run in other orders
 TOL = dict(rtol=1e-4, atol=1e-4)

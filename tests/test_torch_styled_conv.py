@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 from test_pallas_kernels import _styled_conv_twin
+from test_torch_train_common import NARROW_G as NARROW
 
 from ppst_tpu.models.config import PPSTConfig as JaxConfig
 from ppst_tpu.models.generator import Generator as JaxG
@@ -29,9 +30,6 @@ from ppst_tpu_torch.ops import styled_conv_cuda as sc
 from ppst_tpu_torch.util.from_flax import _Out, from_g
 
 NAMES = ["dx", "dw", "dgain", "db", "dscale", "dshift"]
-NARROW = dict(crop_size=64, netE_scale_capacity=0.25, netE2_scale_capacity=0.25,
-              global_code_ch=64, spatial_code_ch=16, netG_resnet_ch=32,
-              netG_scale_capacity=0.125)
 # port (plain) against JAX (interpret), the same float32 arithmetic with bf16
 # at the same points; the sums run in other orders. Measured: the output to
 # one bf16 step (3.9e-3 at a max of 6.2; a mean of 2.4e-7); dx to 1.1e-4 of

@@ -13,26 +13,20 @@ import numpy as np
 import pytest
 import torch
 from PIL import Image
-from test_torch_train_common import seed_checkpoint
+from test_torch_train_common import NARROW_G as NARROW
+from test_torch_train_common import jax_params, seed_checkpoint
 
 from ppst_tpu.models.config import PPSTConfig as JaxConfig
 from ppst_tpu.models.generator import Generator as JaxG
 from ppst_tpu.models.ppst import PPSTModel as JaxModel
-from ppst_tpu.util.convert_torch import convert_reference_state_dict
 from ppst_tpu_torch import test as cli
 from ppst_tpu_torch.models.config import PPSTConfig
 from ppst_tpu_torch.models.ppst import PPSTModel
 
-NARROW = dict(crop_size=64, netE_scale_capacity=0.25, netE2_scale_capacity=0.25,
-              global_code_ch=64, spatial_code_ch=16, netG_resnet_ch=32,
-              netG_scale_capacity=0.125)
-
 
 def _pair(cfg_kw):
     model = PPSTModel(PPSTConfig(**cfg_kw), device="cpu")
-    params = convert_reference_state_dict(
-        {k: v.numpy() for k, v in model.state_dict().items()}, crop_size=cfg_kw["crop_size"])
-    return model, params
+    return model, jax_params(model)
 
 
 @pytest.fixture(scope="module")
@@ -93,10 +87,9 @@ def test_feature_branch_bf16_fused_tap_matches_jax(rng):
     cfg = JaxConfig(**kw)
     sp = rng.standard_normal((2, 8, 8, cfg.spatial_code_ch)).astype(np.float32)
     gl = [rng.standard_normal((2, cfg.style_dim)).astype(np.float32) for _ in range(4)]
-    g_params = jax.tree.map(jnp.asarray, params["G"])
     want = jax.jit(lambda p, s, g: JaxG(cfg).apply(
         {"params": p}, s, g, extract_features=True, rngs={"noise": jax.random.PRNGKey(0)}))(
-        g_params, jnp.asarray(sp).astype(jnp.bfloat16),
+        params["G"], jnp.asarray(sp).astype(jnp.bfloat16),
         [jnp.asarray(g).astype(jnp.bfloat16) for g in gl])
     with torch.no_grad():
         got = model.G(torch.from_numpy(sp).bfloat16(),

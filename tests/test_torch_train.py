@@ -12,7 +12,7 @@ math without the recompute. The helpers and bounds are in
 
 import numpy as np
 import pytest
-from test_torch_train_common import (NARROW, assert_grads, assert_losses, batch, jax_reference,
+from test_torch_train_common import (NARROW, assert_grads, assert_losses, batch, jax_references,
                                      port_step)
 
 from ppst_tpu_torch.models.config import PPSTConfig
@@ -23,7 +23,7 @@ from ppst_tpu_torch.models.ppst import PPSTModel
 def setup():
     model = PPSTModel(PPSTConfig(**NARROW), device="cpu")
     real, mask = batch()
-    return model, real, mask, jax_reference(model, real, mask, remat=False)
+    return model, real, mask, jax_references(model, [(real, mask)], remat=False)[0]
 
 
 @pytest.mark.parametrize("kind", ["d", "r1", "g"])

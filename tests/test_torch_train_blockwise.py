@@ -34,8 +34,8 @@ import jax
 import numpy as np
 import pytest
 import torch
-from test_torch_train_common import (NARROW, assert_grads, assert_losses, batch, jax_references,
-                                     port_step)
+from test_torch_train_common import (NARROW, assert_grads, assert_losses, batch, count_calls,
+                                     jax_references, port_step)
 
 from ppst_tpu_torch.models.config import PPSTConfig
 from ppst_tpu_torch.models.generator import make_fixed_noise
@@ -197,19 +197,8 @@ def test_fused_tap_launch_counts(monkeypatch, knobs, k1_per_g):
     pass, without grad), and in a G step once in g_ext's forward, once in its
     remat recompute and, with remat_taps, once more in the tap's own
     recompute inside that; K2 once a G step."""
-    counts = {"k1": 0, "k2": 0}
-    fwd, bwd = tap_cuda._forward_reference, tap_cuda.fused_tap_1x1_bwd_reference
-
-    def spy_fwd(*a):
-        counts["k1"] += 1
-        return fwd(*a)
-
-    def spy_bwd(*a, **k):
-        counts["k2"] += 1
-        return bwd(*a, **k)
-
-    monkeypatch.setattr(tap_cuda, "_forward_reference", spy_fwd)
-    monkeypatch.setattr(tap_cuda, "fused_tap_1x1_bwd_reference", spy_bwd)
+    counts = count_calls(monkeypatch, tap_cuda, k1="_forward_reference",
+                         k2="fused_tap_1x1_bwd_reference")
     model = PPSTModel(PPSTConfig(**NARROW, dtype="bfloat16", fused_tap=True, **knobs),
                       device="cpu")
     steps = TrainSteps(model)

@@ -5,6 +5,8 @@ The other training test files import these helpers; the tests here check
 the helpers themselves.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +22,7 @@ from ppst_tpu_torch.train.steps import GE_KEYS
 NARROW = dict(crop_size=64, netE_scale_capacity=0.25, netE2_scale_capacity=0.25,
               global_code_ch=64, spatial_code_ch=16, netG_resnet_ch=32,
               netG_scale_capacity=0.125, netD_scale_capacity=0.125)
+NARROW_G = {k: v for k, v in NARROW.items() if k != "netD_scale_capacity"}  # D at its default
 
 
 def seed_checkpoint(path, seed=0, **cfg):
@@ -34,13 +37,7 @@ def jax_params(model):
     """The port's E1/E2/G/D as ppst_tpu param trees (JAX arrays)."""
     sd = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
     tree = convert_reference_state_dict(sd, crop_size=model.cfg.crop_size)
-    return _to_jax(tree)
-
-
-def _to_jax(tree):
-    if isinstance(tree, dict):
-        return {k: _to_jax(v) for k, v in tree.items()}
-    return jnp.asarray(tree)
+    return jax.tree.map(jnp.asarray, tree)
 
 
 def jax_lpips(module):
@@ -96,52 +93,70 @@ LOSS_RTOL = 1e-3
 GRAD_RTOL, GRAD_ATOL, GRAD_COS = 5e-2, 5e-3, 0.995
 
 
-def jax_reference(model, real, mask, **cfg):
-    """ppst_tpu's losses and gradients of one D step, R1 penalty and G step
-    (each jitted once) from the port's weights, with ``cfg`` over NARROW:
-    {"d": (losses, {"D": grads}), "r1": ..., "g": (losses and metrics,
-    grads of G/E1/E2), "g_state": the G step's new state}."""
-    return jax_references(model, [(real, mask)], **cfg)[0]
+@functools.cache
+def jax_steps(knobs):
+    """ppst_tpu's D step, R1 penalty and G step at ``JaxConfig(**NARROW,
+    **dict(knobs))`` as jitted ``value_and_grad`` functions of (trained params,
+    params, state, LPIPS variables, real, mask), once per knob set a process."""
+    cfg = JaxConfig(**dict(NARROW, **dict(knobs)))
 
-
-def jax_references(model, batches, kinds=("d", "r1", "g"), **cfg):
-    """``jax_reference`` for each (real, mask) of ``batches``, from one
-    compilation of each step of ``kinds``."""
-    jmodel = JaxModel(JaxConfig(**dict(NARROW, **cfg)), lpips_variables=jax_lpips(model.lpips))
-    params, state = jax_params(model), jax_state(model)
-
-    def d_loss(d, p, r, m):
-        losses, _ = jmodel.discriminator_losses(dict(p, D=d), state, r, m, jax.random.PRNGKey(0))
+    def d_loss(d, p, state, lpips, r, m):
+        losses, _ = JaxModel(cfg, lpips).discriminator_losses(
+            dict(p, D=d), state, r, m, jax.random.PRNGKey(0))
         return sum(losses.values()), losses
 
-    def r1_loss(d, p, r):
-        losses = jmodel.r1_loss(dict(p, D=d), r)
+    def r1_loss(d, p, state, lpips, r, m):
+        losses = JaxModel(cfg, lpips).r1_loss(dict(p, D=d), r)
         return sum(losses.values()), losses
 
-    def g_loss(ge, p, r, m):
-        losses, metrics, new_state = jmodel.generator_losses(
+    def g_loss(ge, p, state, lpips, r, m):
+        losses, metrics, new_state = JaxModel(cfg, lpips).generator_losses(
             dict(ge, D=p["D"]), state, r, m, jax.random.PRNGKey(0))
         return sum(losses.values()), (losses, metrics, new_state)
 
-    d_fn = jax.jit(jax.value_and_grad(d_loss, has_aux=True))
-    r1_fn = jax.jit(jax.value_and_grad(r1_loss, has_aux=True))
-    g_fn = jax.jit(jax.value_and_grad(g_loss, has_aux=True))
+    return {k: jax.jit(jax.value_and_grad(f, has_aux=True))
+            for k, f in (("d", d_loss), ("r1", r1_loss), ("g", g_loss))}
+
+
+def jax_references(model, batches, kinds=("d", "r1", "g"), **cfg):
+    """ppst_tpu's losses and gradients of the steps of ``kinds`` from the
+    port's weights, queues and LPIPS, with ``cfg`` over NARROW, for each
+    (real, mask) of ``batches``: {"d": (losses, {"D": grads}), "r1": ...,
+    "g": (losses and metrics, grads of G/E1/E2), "g_state": the G step's new
+    state}."""
+    fns = jax_steps(tuple(sorted(cfg.items())))
+    params, state, lpips = jax_params(model), jax_state(model), jax_lpips(model.lpips)
     ge = {k: params[k] for k in GE_KEYS}
     out = []
     for real, mask in batches:
-        jr, jm = jnp.asarray(real), jnp.asarray(mask)
+        args = (params, state, lpips, jnp.asarray(real), jnp.asarray(mask))
         ref = {}
-        if "d" in kinds:
-            (_, d_l), d_g = d_fn(params["D"], params, jr, jm)
-            ref["d"] = (d_l, {"D": d_g})
-        if "r1" in kinds:
-            (_, r1_l), r1_g = r1_fn(params["D"], params, jr)
-            ref["r1"] = (r1_l, {"D": r1_g})
-        if "g" in kinds:
-            (_, (g_l, g_m, g_state)), g_g = g_fn(ge, params, jr, jm)
-            ref["g"], ref["g_state"] = (dict(g_l, **g_m), g_g), g_state
+        for kind in kinds:
+            (_, aux), grads = fns[kind](ge if kind == "g" else params["D"], *args)
+            if kind == "g":
+                ref["g"], ref["g_state"] = (dict(aux[0], **aux[1]), grads), aux[2]
+            else:
+                ref[kind] = (aux, {"D": grads})
         out.append(ref)
     return out
+
+
+def rel_err(a, b, rms):
+    """(mean, max) of |a - b| relative to ``rms``."""
+    d = np.abs(a - b)
+    return d.mean() / rms, d.max() / rms
+
+
+def count_calls(monkeypatch, module, **names):
+    """Calls of ``module``'s functions, counted under the keys of ``names``
+    (key=function name) by spies that ``monkeypatch`` puts in their place."""
+    counts = dict.fromkeys(names, 0)
+    for key, name in names.items():
+        def spy(*a, _key=key, _fn=getattr(module, name), **k):
+            counts[_key] += 1
+            return _fn(*a, **k)
+        monkeypatch.setattr(module, name, spy)
+    return counts
 
 
 def port_step(model, kind, real, mask):

@@ -51,7 +51,7 @@ def test_feature_taps_train_only_the_feature_branch(pair, rng):
             extract_features=True, rngs={"noise": jax.random.PRNGKey(0)})
         return jnp.sum(feat * c1) + jnp.sum(feat1 * c2)
 
-    want = jax.grad(jloss)(params["G"])
+    want = jax.jit(jax.grad(jloss))(params["G"])
     model.zero_grad(set_to_none=True)
     _, feat, feat1 = model.G(torch.from_numpy(sp), [torch.from_numpy(g) for g in gl],
                              extract_features=True, generator=torch.Generator().manual_seed(0))
@@ -95,7 +95,7 @@ def test_e2_deeper_scales_warp_through_detached_corr(pair, rng):
                                                corrmatrix=c)
         return sum(jnp.sum(v * w) for v, w in zip(out.vectors_w, cots))
 
-    want = jax.grad(jloss)(jnp.asarray(corr))
+    want = jax.jit(jax.grad(jloss))(jnp.asarray(corr))
     ct = torch.from_numpy(corr).requires_grad_(True)
     out = model.E2(torch.from_numpy(x), corrmatrix=ct)
     sum((v * torch.from_numpy(w)).sum() for v, w in zip(out.vectors_w, cots)).backward()
